@@ -12,7 +12,8 @@ the shapes of the 2^20-step fibonacci proof's PCS, in phases:
   2. each kernel against its plain torch version at the main path's shapes
      (K1 on seeded (61, 2^22), (13, 2^19) and (4, 2^21) matrices, K2 on every
      level of each of their trees), bitwise, with the times of both and the
-     card's bound for the same work;
+     card's bound for the same work; then both on edge words at (61, 2^16):
+     all 0, all p - 1 and alternating 0 / p - 1;
   3. the slice end to end with the default BasefoldParams: commit, open and
      verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack, each
      with one random ext4 point per height class and the true MLE value of
@@ -59,16 +60,19 @@ WITNESS_CLASSES = [(2, 30), (16, 2), (32, 7), (256, 6), (4096, 1), (16384, 2),
 # fixed-column classes of the same proof's key
 FIXED_CLASSES = [(16, 8), (32, 12), (16384, 8), (65536, 9)]
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
-# the float32 CUDA-core rate counted in fused multiply-adds, the nearest
-# listed rate for the kernels' 32-bit integer multiplies.
+# H100 SXM peaks at the 700 W limit. HBM bytes/s: NVIDIA's H100 data sheet.
+# 32-bit integer multiplies/s: the CUDA C++ Programming Guide's table of
+# arithmetic instruction throughput gives compute capability 9.0 64 results
+# per clock per SM for 32-bit integer multiply and multiply-add (against 128
+# for float32 fma), times the data sheet's 132 SMs and 1.98 GHz boost clock.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_MULS_PER_S = 67e12 / 2
+PEAK_MULS_PER_S = 132 * 64 * 1.98e9
 MULS_PER_PERM = 772 * 3  # Montgomery products per permutation x 3 multiplies
 
 # (C, log2 M) main-path shapes of K1: the witness commit, the fixed commit and
 # the first witness fold tree (4 rows for one point); K2 runs over their trees
 K1_SHAPES = [(61, 22), (13, 19), (4, 21)]
+EDGE_SHAPE = (61, 16)  # (C, log2 M) of the edge-word inputs
 DEVICE = "cuda"
 T0 = time.time()
 
@@ -110,6 +114,10 @@ def wall_ms(fn) -> tuple:
 
 
 def bound(perms: int, nbytes: int) -> tuple:
+    """Least time for ``perms`` permutations moving ``nbytes``: the larger of
+    the bytes over the HBM rate and the integer multiplies over the multiply
+    rate. It counts multiplies only, not the additions and reductions, which
+    share the integer ALU pipe's own 64 per clock per SM."""
     t_ops = perms * MULS_PER_PERM / PEAK_MULS_PER_S
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -186,6 +194,7 @@ def kernels_vs_plain(rng) -> tuple:
             f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
         if err:
             fail(f"K2 differs from its plain version on the 2^{log_m} tree")
+    edge_words(EDGE_SHAPE)
     kernels = [
         dict(name=name, route="cuda", source="ceno_tpu_torch/csrc/poseidon2_merkle.cu",
              replaces=f"ceno_tpu/hash/poseidon2_pallas.py:{line}",
@@ -193,6 +202,25 @@ def kernels_vs_plain(rng) -> tuple:
         for name, line in (("leaf_sponge", 116), ("compress_level", 147))
     ]
     return kernels, rows
+
+
+def edge_words(shape) -> None:
+    """K1 on (C, M) words all 0, all p - 1 and alternating 0 / p - 1, and K2
+    over the tree whose leaves are the first 8 rows of each, bitwise against
+    the plain versions: the values where a reduction left out shows."""
+    c, m = shape[0], 1 << shape[1]
+    alternating = (torch.arange(c * m, device=DEVICE).reshape(c, m) % 2 * (bb.P - 1)).to(bb.DTYPE)
+    for name, words in (("all 0", torch.zeros((c, m), dtype=bb.DTYPE, device=DEVICE)),
+                        ("all p-1", torch.full((c, m), bb.P - 1, dtype=bb.DTYPE, device=DEVICE)),
+                        ("alternating 0/p-1", alternating)):
+        level = words[:8].contiguous()
+        if max_abs_err(pm.leaf_sponge(words), pm.leaf_sponge_plain(words)):
+            fail(f"K1 differs from its plain version on {name} words at ({c}, 2^{shape[1]})")
+        got, want = tree_levels(pm.compress_level, level), tree_levels(pm.compress_level_plain, level)
+        if max(max_abs_err(a, b) for a, b in zip(got, want)):
+            fail(f"K2 differs from its plain version on {name} words, (8, 2^{shape[1]}) tree")
+        log(f"edge words {name}: K1 at ({c}, 2^{shape[1]}) and K2 over (8, 2^{shape[1]}) "
+            "equal their plain versions")
 
 
 def mle_values(arr: np.ndarray, z: np.ndarray) -> np.ndarray:

@@ -58,6 +58,9 @@ def test_cuda_source_tables_match():
     assert table("RC_INT") == p2.RC_INTERNAL_M.tolist()
     assert table("DIAG") == p2.DIAG_M.tolist()
     assert f"P = {bb.P}u" in src and f"PINV = {bb.PINV}u" in src
+    pinv_pos = int(re.search(r"PINV_POS = (\d+)u", src).group(1))
+    assert bb.P * pinv_pos % (1 << 32) == 1 and (pinv_pos + bb.PINV) % (1 << 32) == 0
+    assert f"MONTY_15 = {bb.const(15)}u" in src
 
 
 @pytest.mark.parametrize("shape", [(16,), (16, 37)])
