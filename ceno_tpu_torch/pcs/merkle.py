@@ -1,10 +1,10 @@
 """Poseidon2 Merkle trees over codeword matrices (torch + CUDA kernels).
 
 Counterpart of ``ceno_tpu/pcs/merkle.py``. :func:`hash_and_tree` builds the
-leaf digests with K1 and every level with K2 (``hash/poseidon2_merkle.py``),
-on the codeword's device; a tree keeps its levels there and only the root and
-the query paths cross to the host. The verifier side is numpy, as in the
-reference.
+leaf digests with K1 and every level with one call of K2's tree entry point
+(``hash/poseidon2_merkle.py``), on the codeword's device; a tree keeps its
+levels there and only the root and the query paths cross to the host. The
+verifier side is numpy, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,16 +20,13 @@ from ..hash import poseidon2_merkle as pm
 
 
 def hash_and_tree(cols):
-    """cols (C, M) Montgomery -> (leaf_digests (8, M), levels tuple of (8, m)).
+    """cols (C, M) Montgomery, M a power of two -> (leaf_digests (8, M),
+    levels tuple of (8, m)).
 
-    K1 once, then K2 once per level, down to the (8, 1) root."""
+    K1 once, then K2 once for every level down to the (8, 1) root: one host
+    call, one buffer; M = 1 has no levels."""
     leaves = pm.leaf_sponge(cols.contiguous())
-    levels = []
-    cur = leaves
-    while cur.shape[1] > 1:
-        cur = pm.compress_level(cur)
-        levels.append(cur)
-    return leaves, tuple(levels)
+    return leaves, pm.merkle_levels(leaves)
 
 
 def gather_rows(cols, idx):

@@ -8,17 +8,21 @@ the shapes of the 2^20-step fibonacci proof's PCS, in phases:
 
   0. setup: the card's name and power limit, a 600 s watchdog, the build;
   1. golden Merkle check: K1 then K2 on the committed fixed-column codeword in
-     ``.commit_cache/`` must reproduce its leaves, all 19 levels and the root;
+     ``.commit_cache/`` must reproduce its leaves, all 19 levels and the root,
+     through K2's tree entry point ``merkle_levels`` and once more through the
+     one-level ``compress_level``, level after level;
   2. each kernel against its plain torch version at the main path's shapes
-     (K1 on seeded (61, 2^22), (13, 2^19) and (4, 2^21) matrices, K2 on every
-     level of each of their trees), bitwise, with the times of both and the
-     card's bound for the same work; then both on edge words at (61, 2^16):
-     all 0, all p - 1 and alternating 0 / p - 1;
+     (K1 on seeded (61, 2^22), (13, 2^19) and (4, 2^21) matrices, K2 over
+     each of their trees), bitwise, with the times of both and the card's
+     bound for the same work; K2 over every tree from 2^1 to 2^11 leaves,
+     across its top launch's threshold; then both on edge words at
+     (61, 2^16): all 0, all p - 1 and alternating 0 / p - 1;
   3. the slice end to end with the default BasefoldParams: commit, open and
      verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack, each
      with one random ext4 point per height class and the true MLE value of
      every slice; a claim with one value changed must be rejected. The kernel
-     launch counts are read over this phase alone;
+     launch counts are read over this phase alone and must be those of the
+     phase's 25 trees: K1 once per tree, K2 as ``merkle_plan`` plans them;
   4. report: the span tree, the launch counts, a ``{"kernel_shapes": ...}``
      line with every shape of phase 2, a ``{"kernels": [...]}`` line (the
      largest shapes), the card line and, last,
@@ -72,6 +76,11 @@ MULS_PER_PERM = 772 * 3  # Montgomery products per permutation x 3 multiplies
 # (C, log2 M) main-path shapes of K1: the witness commit, the fixed commit and
 # the first witness fold tree (4 rows for one point); K2 runs over their trees
 K1_SHAPES = [(61, 22), (13, 19), (4, 21)]
+SMALL_TREES = range(1, 12)  # log2 of the leaf counts of the small K2 trees
+# log2 of the leaf counts of phase 3's trees: the witness commit and its 13
+# fold trees, the fixed commit and its 10 (folding stops at 2^9 leaves); the
+# launch-plan tests read this list too
+MAIN_PATH_TREES = [22, *range(21, 8, -1), 19, *range(18, 8, -1)]
 EDGE_SHAPE = (61, 16)  # (C, log2 M) of the edge-word inputs
 DEVICE = "cuda"
 T0 = time.time()
@@ -144,19 +153,32 @@ def golden_check() -> None:
     cur = pm.leaf_sponge(bb.to_device(cw, DEVICE))
     if not np.array_equal(bb.to_host(cur), leaves):
         fail("K1 leaves differ from the committed fixed-commit leaves")
+    tree = pm.merkle_levels(cur)
+    if len(tree) != len(levels):
+        fail(f"merkle_levels gave {len(tree)} levels, the committed tree has {len(levels)}")
     for i, want in enumerate(levels):
+        if not np.array_equal(bb.to_host(tree[i]), want):
+            fail(f"K2 merkle_levels: level {i} differs from the committed level{i}")
         cur = pm.compress_level(cur)
         if not np.array_equal(bb.to_host(cur), want):
-            fail(f"K2 level {i} differs from the committed level{i}")
-    log(f"golden: leaves, {len(levels)} levels and root {bb.to_host(cur)[:, 0].tolist()} equal")
+            fail(f"K2 compress_level: level {i} differs from the committed level{i}")
+    log(f"golden: leaves, {len(levels)} levels (merkle_levels in {len(pm.merkle_plan(cw.shape[1]))}"
+        f" launches, and compress_level level by level) and root "
+        f"{bb.to_host(cur)[:, 0].tolist()} equal")
 
 
-def tree_levels(step, leaves) -> list:
+def plain_levels(leaves) -> list:
     cur, out = leaves, []
     while cur.shape[1] > 1:
-        cur = step(cur)
+        cur = pm.compress_level_plain(cur)
         out.append(cur)
     return out
+
+
+def levels_err(got, want) -> int:
+    if len(got) != len(want):
+        fail(f"K2 gave {len(got)} levels, the plain version {len(want)}")
+    return max((max_abs_err(a, b) for a, b in zip(got, want)), default=0)
 
 
 def kernels_vs_plain(rng) -> tuple:
@@ -182,23 +204,33 @@ def kernels_vs_plain(rng) -> tuple:
         if err:
             fail(f"K1 differs from its plain version at ({c}, 2^{log_m})")
         del cols, want
-        levels = tree_levels(pm.compress_level, got)
-        ms = cuda_ms(lambda: tree_levels(pm.compress_level, got), reps=5)
-        want, plain_ms = wall_ms(lambda: tree_levels(pm.compress_level_plain, got))
-        err = max(max_abs_err(a, b) for a, b in zip(levels, want))
+        levels = pm.merkle_levels(got)
+        ms = cuda_ms(lambda: pm.merkle_levels(got), reps=5)
+        want, plain_ms = wall_ms(lambda: plain_levels(got))
+        err = levels_err(levels, want)
         b_ms, b_by = bound(m - 1, 8 * 4 * m + 8 * 4 * (m - 1))
+        n_launch = len(pm.merkle_plan(m))
         rows.append(dict(name="compress_level", shape=f"all {log_m} levels of (8, 2^{log_m})",
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+                         launches_per_tree=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
         results.setdefault("compress_level", rows[-1])
-        log(f"K2 all {log_m} levels of (8, 2^{log_m}): max_abs_err {err}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+        log(f"K2 all {log_m} levels of (8, 2^{log_m}) in {n_launch} launches: max_abs_err {err}, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
         if err:
             fail(f"K2 differs from its plain version on the 2^{log_m} tree")
+        del levels, want
+    for log_m in SMALL_TREES:
+        leaves = bb.to_device(rng.integers(0, bb.P, size=(8, 1 << log_m), dtype=np.uint64), DEVICE)
+        if levels_err(pm.merkle_levels(leaves), plain_levels(leaves)):
+            fail(f"K2 differs from its plain version on the 2^{log_m} tree")
+    log(f"K2 over every tree from 2^{SMALL_TREES[0]} to 2^{SMALL_TREES[-1]} leaves "
+        f"({sum(len(pm.merkle_plan(1 << n)) for n in SMALL_TREES)} launches) equals the plain version")
     edge_words(EDGE_SHAPE)
     kernels = [
         dict(name=name, route="cuda", source="ceno_tpu_torch/csrc/poseidon2_merkle.cu",
              replaces=f"ceno_tpu/hash/poseidon2_pallas.py:{line}",
-             **{k: v for k, v in results[name].items() if k != "name"}, library_ms=None)
+             **{k: v for k, v in results[name].items() if k not in ("name", "launches_per_tree")},
+             library_ms=None)
         for name, line in (("leaf_sponge", 116), ("compress_level", 147))
     ]
     return kernels, rows
@@ -216,8 +248,7 @@ def edge_words(shape) -> None:
         level = words[:8].contiguous()
         if max_abs_err(pm.leaf_sponge(words), pm.leaf_sponge_plain(words)):
             fail(f"K1 differs from its plain version on {name} words at ({c}, 2^{shape[1]})")
-        got, want = tree_levels(pm.compress_level, level), tree_levels(pm.compress_level_plain, level)
-        if max(max_abs_err(a, b) for a, b in zip(got, want)):
+        if levels_err(pm.merkle_levels(level), plain_levels(level)):
             fail(f"K2 differs from its plain version on {name} words, (8, 2^{shape[1]}) tree")
         log(f"edge words {name}: K1 at ({c}, 2^{shape[1]}) and K2 over (8, 2^{shape[1]}) "
             "equal their plain versions")
@@ -299,10 +330,15 @@ def main() -> int:
     with phase("4 report"):
         print(spans.report(min_seconds=0.001), flush=True)
         log(f"launches on the main path: {launches}")
+        expected = {"leaf_sponge": len(MAIN_PATH_TREES),
+                    "compress_level": sum(len(pm.merkle_plan(1 << n)) for n in MAIN_PATH_TREES)}
         for k in kernels:
             k["launches"] = launches[k["name"]]
             if k["launches"] <= 0:
                 fail(f"kernel {k['name']} was not launched on the main path")
+            if k["launches"] != expected[k["name"]]:
+                fail(f"kernel {k['name']}: {k['launches']} launches on the main path, "
+                     f"its launch plan gives {expected[k['name']]}")
         print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)

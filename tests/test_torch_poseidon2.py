@@ -137,19 +137,28 @@ def test_plain_kernels_reproduce_committed_golden_tree():
             bb.to_host(pm.compress_level_plain(bb.to_device(lo, "cpu"))), hi)
 
 
-def test_wrappers_use_plain_on_cpu_and_never_fall_back():
+def test_wrappers_use_plain_on_cpu_and_never_fall_back(monkeypatch):
     cols = _rand(50, (13, 32))
     before = dict(pm.LAUNCHES)
     x = bb.to_device(cols, "cpu")
     assert torch.equal(pm.leaf_sponge(x), pm.leaf_sponge_plain(x))
+    leaves = pm.leaf_sponge(x)
+    tree = pm.merkle_levels(leaves)
+    assert all(torch.equal(a, b) for a, b in zip(tree, pm.merkle_levels_plain(leaves)))
     assert pm.LAUNCHES == before  # CPU tensors launch nothing
     with pytest.raises(ValueError):
         pm.compress_level(bb.to_device(_rand(51, (8, 3)), "cpu"))
-    # a tensor on any device other than the CPU goes to the kernel or raises
+    # a tensor on any device other than the CPU goes to the kernel or raises;
+    # with the plain versions made to fail, the error is the wrapper's own
+    for name in ("leaf_sponge_plain", "compress_level_plain", "merkle_levels_plain"):
+        monkeypatch.setattr(pm, name, lambda *a: pytest.fail("plain version on a non-CPU tensor"))
     with pytest.raises(ValueError):
         pm.leaf_sponge(torch.empty((13, 32), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         pm.compress_level(torch.empty((8, 32), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        pm.merkle_levels(torch.empty((8, 32), dtype=torch.int32, device="meta"))
+    assert pm.LAUNCHES == before
 
 
 def _script(t):
