@@ -7,20 +7,28 @@ JaggedLayout, JaggedClaim, JaggedOpening) the plain form is what
 builds the port's object from it. A commitment carries device tensors, so it
 has its own pair (:func:`committed_to_numpy`, :func:`committed_from_numpy`),
 and a transcript goes across as its ``export_state()`` tuple, which
-:meth:`Transcript.from_state` takes. Field values in
-the plain form are canonical numpy ``uint64``, as the reference keeps them on
-the host.
+:meth:`Transcript.from_state` takes. The GKR slice's objects (TowerProof,
+ClassMainProof, ChipOpening, TraceView) go the same way: ``asdict`` in, a
+``*_from_dict`` here out. Field values in the plain form are canonical numpy
+``uint64``, as the reference keeps them on the host. :func:`digest` hashes a
+plain form, so either package's object can be held against a committed
+digest.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 
 from . import DEFAULT_DEVICE
 from .fields import babybear as bb
+from .gkr.chip import ChipOpening, ClassMainProof
+from .gkr.tower import TowerProof
 from .pcs.basefold import BasefoldParams, Committed, OpeningProof, QueryProof
 from .pcs.jagged import JaggedClaim, JaggedLayout, JaggedOpening, SliceRef
 from .pcs.merkle import MerkleTree
+from .zkvm.chips.opcodes import TraceView
 
 
 def _u64(x) -> np.ndarray:
@@ -87,3 +95,51 @@ def opening_from_dict(d: dict) -> JaggedOpening:
         _u64(o["tail"]), _u64(o["point_evals"]), queries, int(o["pow_nonce"]),
     )
     return JaggedOpening(_u64(d["trans_msgs"]), _u64(d["v_evals"]), opening)
+
+
+# -- GKR: TowerProof, ClassMainProof, ChipOpening, TraceView ------------------
+
+def tower_proof_from_dict(d: dict) -> TowerProof:
+    return TowerProof(
+        _u64(d["prod_out"]), _u64(d["logup_out"]),
+        [_u64(m) for m in d["round_msgs"]], [_u64(e) for e in d["level_evals"]],
+    )
+
+
+def class_main_from_dict(d: dict) -> ClassMainProof:
+    return ClassMainProof(
+        _u64(d["main_msgs"]), [_u64(e) for e in d["wit_evals"]],
+        [_u64(e) for e in d["fixed_evals"]], [_u64(e) for e in d["structural_evals"]],
+    )
+
+
+def chip_opening_from_dict(d: dict) -> ChipOpening:
+    return ChipOpening(_u64(d["point"]), _u64(d["wit_evals"]), _u64(d["fixed_evals"]))
+
+
+def trace_view_from_dict(d: dict) -> TraceView:
+    return TraceView(**{k: (int(v) if k == "n" else np.asarray(v, np.int64)) for k, v in d.items()})
+
+
+def digest(plain) -> str:
+    """SHA-256 (hex) of a plain form: dicts by sorted key, lists in order,
+    every number or array as its shape and canonical ``uint64`` bytes."""
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            h.update(b"{%d" % len(x))
+            for k in sorted(x):
+                h.update(repr(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            h.update(b"[%d" % len(x))
+            for v in x:
+                walk(v)
+        else:
+            a = np.ascontiguousarray(x, dtype=np.uint64)
+            h.update(repr(a.shape).encode())
+            h.update(a.astype("<u8").tobytes())
+
+    walk(plain)
+    return h.hexdigest()

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ceno_tpu_torch/csrc`` and checks the port at
-the shapes of the 2^20-step fibonacci proof's PCS, in phases:
+the shapes of the 2^20-step fibonacci proof, in phases:
 
   0. setup: the card's name and power limit, a 600 s watchdog, the build;
   1. golden Merkle check: K1 then K2 on the committed fixed-column codeword in
@@ -17,15 +17,26 @@ the shapes of the 2^20-step fibonacci proof's PCS, in phases:
      bound for the same work; K2 over every tree from 2^1 to 2^11 leaves,
      across its top launch's threshold; then both on edge words at
      (61, 2^16): all 0, all p - 1 and alternating 0 / p - 1;
-  3. the slice end to end with the default BasefoldParams: commit, open and
-     verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack, each
-     with one random ext4 point per height class and the true MLE value of
-     every slice; a claim with one value changed must be rejected. The kernel
-     launch counts are read over this phase alone and must be those of the
-     phase's 25 trees: K1 once per tree, K2 as ``merkle_plan`` plans them;
-  4. report: the span tree, the launch counts, a ``{"kernel_shapes": ...}``
-     line with every shape of phase 2, a ``{"kernels": [...]}`` line (the
-     largest shapes), the card line and, last,
+  3. the PCS slice end to end with the default BasefoldParams: commit, open
+     and verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack,
+     each with one random ext4 point per height class and the true MLE value
+     of every slice; a claim with one value changed must be rejected. The
+     kernel launch counts are read over this phase alone and must be those of
+     the phase's 25 trees: K1 once per tree, K2 as ``merkle_plan`` plans them;
+  4. the GKR slice: ``fibonacci_vm(174760)`` (1,048,571 steps) on the port's
+     native emulator core (built from its C++ source; no fallback to the
+     Python interpreter), the opcode chips' witness (rows per chip checked
+     against the program), then stages 3-5 of ``zkvm/scheme.prove`` on the
+     card: records per chip, one tower per tower size, one batched main
+     zerocheck per height class, every record, tower layer and sumcheck bank
+     checked to lie on the card; the port's verifiers must accept, and reject
+     a proof over one changed output limb of the add chip; last, the digests
+     of the same stages at ``fibonacci_vm(100)`` must equal the reference's,
+     committed in ``ceno_tpu_torch/golden/gkr_fibonacci.json``;
+  5. report: phase 3's span tree, the launch counts, a
+     ``{"kernel_shapes": ...}`` line with every shape of phase 2, phase 4's
+     span tree and its ``{"gkr": {...}}`` line, a ``{"kernels": [...]}`` line
+     (the largest shapes; launches over phase 3), the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
@@ -35,6 +46,7 @@ last line. Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import json
 import os
@@ -45,14 +57,24 @@ import time
 import numpy as np
 import torch
 
+from ceno_tpu_torch import interop
+from ceno_tpu_torch.emulator import native, programs
+from ceno_tpu_torch.emulator.state import CYCLE_START
 from ceno_tpu_torch.fields import babybear as bb
+from ceno_tpu_torch.gkr import chip as gkr_chip
+from ceno_tpu_torch.gkr import tower
+from ceno_tpu_torch.gkr.chip import ChipError
+from ceno_tpu_torch.gkr.tower import TowerError
 from ceno_tpu_torch.hash import poseidon2_merkle as pm
 from ceno_tpu_torch.hash.transcript import Transcript
 from ceno_tpu_torch.mle import ops
 from ceno_tpu_torch.pcs import basefold as bf
 from ceno_tpu_torch.pcs import jagged as jg
+from ceno_tpu_torch.sumcheck import terms
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 from ceno_tpu_torch.utils import cuda_build, spans
+from ceno_tpu_torch.zkvm import layout, witgen
+from ceno_tpu_torch.zkvm.chips.opcodes import build_opcode_chips
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, ".commit_cache", "commit-8cc386001f1b61172778f21844b7e769.npz")
@@ -294,6 +316,274 @@ def run_slice(name, classes, rng, params) -> None:
         fail(f"{name}: a tampered claim was accepted")
 
 
+# -- phase 4: the GKR slice ------------------------------------------------------
+
+LABEL = b"ceno-tpu/zkvm/v8"  # the zkVM transcript label (ceno_tpu/zkvm/scheme.py:53)
+GKR_ITERS = 174760           # bench.py's fibonacci_vm(174760): 1,048,571 steps
+GOLDEN_ITERS = 100           # the size of the reference's committed digests
+GKR_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "gkr_fibonacci.json")
+
+
+def sync() -> None:
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fib_rows(n: int) -> dict:
+    """Rows of each opcode chip in fibonacci_vm(n), counted from FIBONACCI:
+    each of the n iterations runs beq, add, three addi (two mv and the
+    decrement) and j (jal); outside the loop run one more beq, one mv, the
+    ecall (halt) and four li of two words each, lui + addi where the value
+    has upper bits (n >= 2048 for li a0, n) and else addi + an addi nop."""
+    lui = int(n >= 2048)
+    rows = dict.fromkeys(("add", "sub", "addi", "lui", "beq", "bne", "jal", "slli",
+                          "lw", "sw", "halt"), 0)
+    rows.update(add=n, addi=3 * n + 9 - lui, lui=lui, beq=n + 1, jal=n, halt=1)
+    return rows
+
+
+def public_values(vm) -> np.ndarray:
+    """The public values as zkvm/e2e.py's public_values_from_vm sets them, for
+    the slots the opcode chips read: of these chips only halt reads
+    instances (end pc, end cycle, exit code). The slots of chips not ported
+    yet (shard, heap, stack and info lengths, the public-io digest) stay 0."""
+    pv = np.zeros(layout.N_PUBLIC_VALUES, np.uint64)
+    pv[layout.PV_INIT_PC] = vm.entry
+    pv[layout.PV_INIT_CYCLE] = CYCLE_START
+    pv[layout.PV_END_PC] = vm.pc
+    pv[layout.PV_END_CYCLE] = vm.cycle
+    pv[layout.PV_EXIT_CODE_LO] = vm.exit_code & 0xFFFF
+    pv[layout.PV_EXIT_CODE_HI] = (vm.exit_code >> 16) & 0xFFFF
+    return pv
+
+
+def gkr_transcript(pv: np.ndarray) -> tuple:
+    """The transcript and the two RLC challenges, as zkvm/scheme.prove starts
+    them. The reference absorbs the verifying key's digest before the public
+    values, and the witness commitment's root and every chip's instance
+    count before the challenges; the key (with the table chips) and the
+    witness commit are not part of this slice, so neither is absorbed."""
+    t = Transcript(LABEL)
+    t.append(pv)
+    return t, np.array([t.sample_ext(), t.sample_ext()], np.uint64)
+
+
+def gkr_prove(assigned: list, pv: np.ndarray) -> dict:
+    """Stages 3-5 of zkvm/scheme.prove over the opcode chips that have rows:
+    records per chip in registry order, one tower per tower size N_t
+    (ascending; chips in registry order), then one main zerocheck per height
+    class (ascending). Returns the proofs, the groups, the chips' tower
+    inputs and contexts, and each stage's seconds."""
+    t, challenges = gkr_transcript(pv)
+    active = [a for a in assigned if a.num_instances > 0]
+    inputs, seconds = {}, {"records": {}, "towers": {}, "class_main": {}}
+    for a in active:
+        if a.compiled.n_fixed:
+            fail(f"{a.name}: fixed columns come with the key, which this slice does not build")
+        n = a.n_rows
+        structural = (np.stack([gkr_chip.structural_table(s, n, pv) for s in a.compiled.structural])
+                      if a.compiled.structural else np.zeros((0, n), np.uint64))
+        t0 = time.time()
+        with spans.span(f"records/{a.name}"):
+            inputs[a.name] = gkr_chip.build_tower_inputs(
+                a.compiled, a.wit, np.zeros((0, n), np.uint64), structural, pv,
+                a.num_instances, challenges, device=DEVICE)
+            sync()
+        seconds["records"][a.name] = time.time() - t0
+    groups, towers, ctxs = {}, {}, {}
+    for a in active:
+        groups.setdefault(inputs[a.name].n_tower, []).append(a.name)
+    for n_t in sorted(groups):
+        t0 = time.time()
+        towers[n_t], gctxs = gkr_chip.prove_group_towers([inputs[nm] for nm in groups[n_t]], t)
+        seconds["towers"][f"2^{n_t.bit_length() - 1}"] = time.time() - t0
+        ctxs.update(zip(groups[n_t], gctxs))
+    classes, mains, openings = {}, {}, {}
+    for a in active:
+        classes.setdefault(a.n_rows, []).append(a.name)
+    for h in sorted(classes):
+        t0 = time.time()
+        with spans.span(f"class-main/2^{h.bit_length() - 1}"):
+            mains[h], openings[h] = gkr_chip.prove_class_main(
+                [ctxs[nm] for nm in classes[h]], pv, challenges, t)
+        seconds["class_main"][f"2^{h.bit_length() - 1}"] = time.time() - t0
+    return dict(challenges=challenges, inputs=inputs, groups=groups, towers=towers, ctxs=ctxs,
+                classes=classes, mains=mains, openings=openings, transcript=t, seconds=seconds)
+
+
+def gkr_verify(assigned: list, pv: np.ndarray, run: dict) -> tuple:
+    """The port's verifiers over ``run``'s proofs on a fresh transcript, in
+    the prover's order. Returns (transcript, openings per class); raises
+    ChipError, TowerError or SumcheckError on a rejected proof."""
+    t, challenges = gkr_transcript(pv)
+    by_name = {a.name: a for a in assigned}
+    vctxs = {}
+    for n_t in sorted(run["groups"]):
+        names = run["groups"][n_t]
+        entries = [(by_name[nm].compiled, by_name[nm].num_instances,
+                    by_name[nm].n_rows.bit_length() - 1) for nm in names]
+        out = gkr_chip.verify_group_towers(entries, run["towers"][n_t], pv, challenges, t)
+        vctxs.update(zip(names, (o[0] for o in out)))
+    openings = {}
+    for h in sorted(run["classes"]):
+        openings[h] = gkr_chip.verify_class_main(
+            [vctxs[nm] for nm in run["classes"][h]], run["mains"][h], pv, challenges, t)
+    return t, openings
+
+
+def gkr_digests(run: dict) -> dict:
+    """SHA-256 digests of each group's TowerProof, each class's
+    ClassMainProof and the final transcript state (``interop.digest`` of
+    their plain forms)."""
+    return {
+        "towers": {f"2^{n_t.bit_length() - 1}": interop.digest(dataclasses.asdict(p))
+                   for n_t, p in sorted(run["towers"].items())},
+        "class_main": {f"2^{h.bit_length() - 1}": interop.digest(dataclasses.asdict(p))
+                       for h, p in sorted(run["mains"].items())},
+        "transcript": interop.digest(list(run["transcript"].export_state())),
+    }
+
+
+@contextlib.contextmanager
+def device_audit():
+    """Record the device of every tower layer and every sumcheck bank made
+    inside the block (the tower's layer builders and the banks' constructor,
+    wrapped for its length)."""
+    seen = {"layers": [], "banks": []}
+    originals = (tower.product_layers, tower.logup_layers, terms.make_banks)
+
+    def wrap(fn, key, tensors):
+        def inner(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen[key] += [x.device.type for x in tensors(out)]
+            return out
+        return inner
+
+    tower.product_layers = wrap(originals[0], "layers", lambda out: out)
+    tower.logup_layers = wrap(originals[1], "layers", lambda out: out[0] + out[1])
+    terms.make_banks = wrap(originals[2], "banks", lambda out: out)
+    try:
+        yield seen
+    finally:
+        tower.product_layers, tower.logup_layers, terms.make_banks = originals
+
+
+def check_devices(run: dict, seen: dict) -> dict:
+    """Every record, tower layer and sumcheck bank of ``run`` lies on DEVICE's
+    kind; returns how many of each were checked."""
+    want = torch.device(DEVICE).type
+    records = [x.device.type for ti in run["inputs"].values()
+               for x in ti.prods + [m for pq in ti.lps for m in pq]]
+    counts = {"records": len(records), "layers": len(seen["layers"]), "banks": len(seen["banks"])}
+    for what, devices in (("records", records), ("layers", seen["layers"]), ("banks", seen["banks"])):
+        if not devices or set(devices) != {want}:
+            fail(f"GKR {what} on {sorted(set(devices))}, not on {want}")
+    return counts
+
+
+def tamper_add(assigned: list) -> list:
+    """``assigned`` with one output limb of the add chip changed (rd_lo of
+    its first row): a cell its constraints and its write record bind."""
+    out = []
+    for a in assigned:
+        if a.name == "add":
+            wit = a.wit.copy()
+            i = a.cb.wit_names.index("rd_lo")
+            wit[i, 0] = (wit[i, 0] + np.uint64(1)) % np.uint64(bb.P)
+            a = dataclasses.replace(a, wit=wit)
+        out.append(a)
+    return out
+
+
+def emulate_and_assign(n: int) -> tuple:
+    """fibonacci_vm(n) on the native core (never the Python interpreter),
+    checked, then the opcode chips' witness, checked row by row against
+    :func:`fib_rows`. Returns (vm, assigned, seconds)."""
+    seconds = {}
+    t0 = time.time()
+    vm = programs.fibonacci_vm(n)
+    view = native.run_trace_native(vm)
+    seconds["emulate"] = time.time() - t0
+    want = fib_rows(n)
+    if view.n != sum(want.values()) or not vm.halted:
+        fail(f"fibonacci_vm({n}) ran {view.n} steps (halted {vm.halted}), "
+             f"FIBONACCI gives {sum(want.values())}")
+    if vm.regs[10] != programs.fib_expected(n):
+        fail(f"fibonacci_vm({n}): a0 = {vm.regs[10]}, fib_expected gives {programs.fib_expected(n)}")
+    t0 = time.time()
+    assigned = witgen.assign_opcode_chips(view, build_opcode_chips())
+    seconds["witgen"] = time.time() - t0
+    rows = {a.name: a.num_instances for a in assigned}
+    if rows != want:
+        fail(f"fibonacci_vm({n}): rows per chip {rows}, FIBONACCI gives {want}")
+    return vm, assigned, seconds
+
+
+def run_gkr(n: int) -> dict:
+    """Phase 4 at fibonacci_vm(n): emulate, assign, prove (records, grouped
+    towers, class mains), verify, then prove and verify again with one add
+    output limb changed, which must be rejected. Returns the ``gkr`` line."""
+    vm, assigned, seconds = emulate_and_assign(n)
+    log(f"GKR: fibonacci_vm({n}) ran {sum(a.num_instances for a in assigned)} steps in "
+        f"{seconds['emulate']:.2f}s on the native core, witness in {seconds['witgen']:.2f}s")
+    pv = public_values(vm)
+    t0 = time.time()
+    spans.enable()
+    with device_audit() as seen:
+        run = gkr_prove(assigned, pv)
+        sync()
+    seconds["prove"] = time.time() - t0
+    span_report = spans.report(min_seconds=0.001)
+    spans.disable()
+    checked = check_devices(run, seen)
+    log(f"GKR: proved in {seconds['prove']:.2f}s; on {DEVICE}: {checked}")
+    t0 = time.time()
+    vt, vopen = gkr_verify(assigned, pv, run)
+    seconds["verify"] = time.time() - t0
+    if not np.array_equal(vt.export_state()[0], run["transcript"].export_state()[0]):
+        fail("GKR: the verifier's transcript ended elsewhere than the prover's")
+    for h, ops_ in run["openings"].items():
+        if any(not np.array_equal(a.point, b.point) for a, b in zip(ops_, vopen[h])):
+            fail(f"GKR: class 2^{h.bit_length() - 1} opens at another point than it proved")
+    log(f"GKR: verified in {seconds['verify']:.2f}s")
+    t0 = time.time()
+    bad = tamper_add(assigned)
+    try:
+        gkr_verify(bad, pv, gkr_prove(bad, pv))
+    except (ChipError, TowerError, SumcheckError) as e:
+        log(f"GKR: a changed add output limb rejected ({type(e).__name__}: {e})")
+    else:
+        fail("GKR: a proof over a changed add output limb was accepted")
+    seconds["tamper_prove_verify"] = time.time() - t0
+    chips = {a.name: {"rows": a.num_instances, "height": a.n_rows} for a in assigned if a.num_instances}
+    groups = {}
+    for n_t, names in sorted(run["groups"].items()):
+        levels = n_t.bit_length() - 2
+        groups[f"2^{n_t.bit_length() - 1}"] = {"chips": names, "levels": levels,
+                                                "rounds": levels * (levels + 1) // 2}
+    classes = {f"2^{h.bit_length() - 1}": {"chips": names, "rounds": h.bit_length() - 1}
+               for h, names in sorted(run["classes"].items())}
+    return {"program": f"fibonacci_vm({n})", "steps": sum(a.num_instances for a in assigned),
+            "device": DEVICE, "seconds": seconds, "stage_seconds": run["seconds"],
+            "chips": chips, "tower_groups": groups, "classes": classes,
+            "checked_on_device": checked, "span_report": span_report}
+
+
+def gkr_golden_check(n: int = GOLDEN_ITERS) -> dict:
+    """The port's digests at fibonacci_vm(n) against the reference's,
+    committed in GKR_GOLDEN."""
+    with open(GKR_GOLDEN) as f:
+        want = json.load(f)
+    vm, assigned, _ = emulate_and_assign(n)
+    got = gkr_digests(gkr_prove(assigned, public_values(vm)))
+    if want["program"] != f"fibonacci_vm({n})" or got != want["digests"]:
+        fail(f"GKR digests at fibonacci_vm({n}) differ from {os.path.relpath(GKR_GOLDEN, ROOT)}: "
+             f"{got} against {want}")
+    log(f"GKR: fibonacci_vm({n}) digests equal the reference's ({len(got['towers'])} towers, "
+        f"{len(got['class_main'])} class mains, transcript)")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -316,7 +606,7 @@ def main() -> int:
         kernels, shape_rows = kernels_vs_plain(np.random.default_rng(SEED))
     torch.cuda.empty_cache()
 
-    with phase("3 slice end to end"):
+    with phase("3 PCS slice end to end"):
         rng = np.random.default_rng(SEED + 1)
         spans.enable()
         pm.reset_launches()
@@ -325,10 +615,21 @@ def main() -> int:
                 run_slice(name, classes, rng, bf.BasefoldParams())
         torch.cuda.synchronize()
         launches = dict(pm.LAUNCHES)
+        pcs_report = spans.report(min_seconds=0.001)
         spans.disable()
+    torch.cuda.empty_cache()
 
-    with phase("4 report"):
-        print(spans.report(min_seconds=0.001), flush=True)
+    with phase("4 GKR slice"):
+        torch.cuda.reset_peak_memory_stats()
+        gkr = run_gkr(GKR_ITERS)
+        gkr["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        t = time.time()
+        gkr["golden_digests"] = gkr_golden_check()
+        gkr["seconds"]["golden_check"] = time.time() - t
+        gkr_report = gkr.pop("span_report")
+
+    with phase("5 report"):
+        print(pcs_report, flush=True)
         log(f"launches on the main path: {launches}")
         expected = {"leaf_sponge": len(MAIN_PATH_TREES),
                     "compress_level": sum(len(pm.merkle_plan(1 << n)) for n in MAIN_PATH_TREES)}
@@ -340,6 +641,8 @@ def main() -> int:
                 fail(f"kernel {k['name']}: {k['launches']} launches on the main path, "
                      f"its launch plan gives {expected[k['name']]}")
         print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
+        print(gkr_report, flush=True)
+        print(json.dumps({"gkr": gkr}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
