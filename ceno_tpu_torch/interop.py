@@ -13,6 +13,13 @@ ClassMainProof, ChipOpening, TraceView) go the same way: ``asdict`` in, a
 ``uint64``, as the reference keeps them on the host. :func:`digest` hashes a
 plain form, so either package's object can be held against a committed
 digest.
+
+A whole zkVM proof goes across as its ``proof_to_bytes`` bytes: the format
+is the same in both packages, so the port's ``zkvm/serialize.proof_from_bytes``
+reads the reference's proof and ``proof_to_bytes`` writes it back byte for
+byte. The key does not go across: keygen is deterministic, so each side
+derives it from (program, config, params), and :func:`key_summary` gives what
+two keys are compared by.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import numpy as np
 
 from . import DEFAULT_DEVICE
 from .fields import babybear as bb
-from .gkr.chip import ChipOpening, ClassMainProof
+from .gkr.chip import ChipOpening, ClassMainProof, chip_digest
 from .gkr.tower import TowerProof
 from .pcs.basefold import BasefoldParams, Committed, OpeningProof, QueryProof
 from .pcs.jagged import JaggedClaim, JaggedLayout, JaggedOpening, SliceRef
@@ -143,3 +150,12 @@ def digest(plain) -> str:
 
     walk(plain)
     return h.hexdigest()
+
+
+# -- the key: compared, not carried --------------------------------------------
+
+def key_summary(vk) -> dict:
+    """What two verifying keys are compared by: ``digest_elems()`` and, per
+    chip in registry order, its name and ``chip_digest``."""
+    return {"digest_elems": np.asarray(vk.digest_elems(), np.uint64),
+            "chips": [(m.name, chip_digest(m.compiled)) for m in vk.metas]}

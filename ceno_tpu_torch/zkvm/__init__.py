@@ -1,7 +1,6 @@
-"""zkVM layer: public-value layout, the opcode chips and their witgen.
-
-The scheme (keygen, prove, verify), the table chips and serialization are not
-ported yet.
+"""zkVM layer: the public-value layout, the chip and table registry and its
+witgen, the scheme (keygen, prove, verify), proof serialization and the
+end-to-end pipeline.
 """
 
-from . import layout, witgen  # noqa: F401
+from . import layout, tables, witgen, scheme, e2e  # noqa: F401

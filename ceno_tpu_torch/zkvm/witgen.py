@@ -1,20 +1,35 @@
-"""Witness generation for the opcode chips: trace rows -> per-chip matrices.
+"""Witness generation: trace records -> per-chip trace matrices + multiplicities.
 
-Counterpart of ``ceno_tpu/zkvm/witgen.py``, its first stage only
-(``AssignedChip``, ``_pad_pow2`` and ``assign_opcode_chips``): dispatch traced
-steps to opcode chips by instruction kind and fill each chip's witness
-matrix, canonical numpy ``uint64`` on the host as in the reference. The
-lookup multiplicities and the table chips (``generate_witness``) need
-``zkvm/tables.py`` and are not ported yet.
+Role mirror of the reference's witgen stage (generate_witness, e2e.rs:1392 and
+Instruction::assign_instances, SURVEY.md §3.1): dispatch traced steps to opcode
+chips by instruction kind, fill each chip's witness matrix, count lookup
+multiplicities (LkMultiplicity mirror) by evaluating every chip's lookup field
+expressions over its assigned rows, then assign the table chips from the
+counts + final VM state.
+
+Single shard: every table and dynamic-RAM chip is active, and the
+shard-RAM / EC-tree chips are assigned from empty token lists.
+
+Port of ``ceno_tpu/zkvm/witgen.py``'s single-shard path, with the same
+relative imports. The reference's sharded mode (a shard context with token
+lists and first/last gating, and reuse of planned opcode matrices) comes
+with ``zkvm/shard.py`` (continuations). Unlike the reference,
+``generate_witness`` times three of its steps in spans (``opcode-chips``,
+``lookup-counts``, ``tables``).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..gkr.mock import eval_expr_host
+from ..gkr.chip import structural_table
+from ..utils import spans
 from .chips.opcodes import ChipDef
+from .tables import TableDef, WitgenCtx, ZKVMConfig
 
 
 @dataclass
@@ -37,11 +52,63 @@ def _pad_pow2(m: np.ndarray, k: int) -> np.ndarray:
     return m
 
 
-def assign_opcode_chips(view, opcode_chips: list[ChipDef]):
-    """Stage 1: fill opcode-chip matrices from a (possibly sliced) trace view.
+def _lk_counts(cb, compiled, wit, instances, k, counts: dict):
+    """Evaluate chip-side lookup fields over active rows; bump counters."""
+    n = wit.shape[1] if wit.size else 2
+    structural = (
+        np.stack([structural_table(s, n, instances)
+                  for s in compiled.structural])
+        if compiled.structural
+        else np.zeros((0, n), np.uint64)
+    )
+    fixed = np.zeros((0, n), np.uint64)  # lookups never reference fixed cols here
+    memo = {}
+    for tag, fields in cb.lk_fields:
+        vals = []
+        for f in fields:
+            kind, v = eval_expr_host(f, wit, fixed, structural, instances, _MOCK_CHAL, memo)
+            assert kind == "b", "lookup fields must be base-valued"
+            vals.append(np.broadcast_to(np.atleast_1d(np.asarray(v, np.uint64)), (n,)))
+        tagc = counts.setdefault(tag, Counter())
+        stacked = np.stack(vals, axis=1)[:k]  # (k, n_fields)
+        # pack rows into one uint64 key when the widths fit: 1D unique is
+        # ~5x faster than the structured axis=0 sort on the hot tables
+        widths = [
+            max(1, int(stacked[:, j].max()).bit_length())
+            for j in range(stacked.shape[1])
+        ]
+        if sum(widths) <= 63:
+            keys = np.zeros(k, np.uint64)
+            for j, w_ in enumerate(widths):
+                keys = (keys << np.uint64(w_)) | stacked[:, j]
+            if sum(widths) <= 20:
+                # narrow key space: O(n) bincount beats the unique sort
+                counts_arr = np.bincount(
+                    keys.astype(np.int64), minlength=1 << sum(widths)
+                )
+                uk = np.nonzero(counts_arr)[0].astype(np.uint64)
+                cnt = counts_arr[uk.astype(np.int64)]
+            else:
+                uk, cnt = np.unique(keys, return_counts=True)
+            for key, c in zip(uk, cnt):
+                key = int(key)
+                row = []
+                for w_ in reversed(widths):
+                    row.append(key & ((1 << w_) - 1))
+                    key >>= w_
+                tagc[tuple(reversed(row))] += int(c)
+        else:
+            uniq, cnt = np.unique(stacked, axis=0, return_counts=True)
+            for row, c in zip(uniq, cnt):
+                tagc[tuple(int(x) for x in row)] += int(c)
 
-    Lookup counting is deferred (stage 2) so the shard planner can run on the
-    assigned matrices in between."""
+
+_MOCK_CHAL = np.array([[5, 7, 11, 13], [17, 19, 23, 29]], np.uint64)
+
+
+def assign_opcode_chips(view, opcode_chips: list[ChipDef]):
+    """Stage 1: fill opcode-chip matrices from a trace view. Lookup counting
+    is stage 2."""
     covered = np.zeros(view.n, bool)
     assigned = []
     for chip in opcode_chips:
@@ -60,4 +127,94 @@ def assign_opcode_chips(view, opcode_chips: list[ChipDef]):
     assert covered.all(), (
         f"steps with no chip: kinds {set(view.kind[~covered].tolist())}"
     )
+    return assigned
+
+
+def generate_witness(
+    records,
+    opcode_chips: list[ChipDef],
+    tables: list[TableDef],
+    vm,
+    instances: np.ndarray,
+    cfg: ZKVMConfig,
+    shard_chips: list | None = None,
+    dyn_chips: list | None = None,
+    data_image: dict | None = None,
+):
+    """Returns the assigned list in registry order: opcode chips, shard
+    chips (if any), dynamic-RAM chips (if any), then tables."""
+    from .chips.opcodes import TraceView
+
+    view = records if isinstance(records, TraceView) else TraceView.from_records(records)
+    with spans.span("opcode-chips"):
+        assigned = assign_opcode_chips(view, opcode_chips)
+    counts: dict = {}
+    with spans.span("lookup-counts"):
+        for a in assigned:
+            if a.num_instances:
+                _lk_counts(a.cb, a.compiled, a.wit, instances, a.num_instances, counts)
+
+    if shard_chips:
+        from .chips.shard_ram import assign_shard_ram, assign_ec_tree, Tokens
+
+        # one shard sends and receives no cross-shard tokens
+        tok = Tokens.empty()
+        for chip in shard_chips:
+            fsum = None
+            if chip.kind.startswith("shard_ram"):
+                wit = assign_shard_ram(chip, tok)
+            else:
+                wit, fsum = assign_ec_tree(chip, tok)
+            assigned.append(AssignedChip(
+                chip.name, chip.compiled, chip.cb, wit, 0, wit.shape[1],
+                False, kind=chip.kind, ec_final_sum=fsum,
+            ))
+
+    if dyn_chips:
+        from .chips.dyn_ram import assign_dyn_ram, dyn_region_words
+
+        lens = dyn_region_words(vm, cfg)
+        pv = np.asarray(instances, np.uint64)
+        for chip in dyn_chips:
+            k = int(pv[chip.pv_slot])
+            if k < lens[chip.region]:
+                raise AssertionError(
+                    f"{chip.name}: public {chip.region} length {k} does not "
+                    f"cover the {lens[chip.region]} accessed words"
+                )
+            wit = assign_dyn_ram(chip, vm, k)
+            assigned.append(
+                AssignedChip(chip.name, chip.compiled, chip.cb, wit, k,
+                             wit.shape[1], False, kind=chip.kind)
+            )
+
+    # every touched/initialized address must be covered by a RAM window,
+    # a dynamic region, or the program image
+    from .chips.dyn_ram import dyn_regions
+    from .tables import memory_windows
+
+    windows = memory_windows(cfg)
+    regions = dyn_regions(cfg)
+    image = data_image or {}
+    for waddr in set(vm.touched) | set(vm.mem_init):
+        if waddr in image:
+            continue
+        if any(b <= waddr < b + sz for b, sz in windows):
+            continue
+        if any(lo <= waddr < hi for lo, hi, _ in regions):
+            continue
+        raise AssertionError(
+            f"memory access at word {waddr:#x} outside all RAM regions"
+        )
+
+    ctx = WitgenCtx(counts, vm, None, cfg)
+    with spans.span("tables"):
+        for t in tables:
+            wit = _pad_pow2(t.assign(ctx), t.n_rows)
+            assigned.append(
+                AssignedChip(
+                    t.name, t.compiled, t.cb, wit, t.n_rows, wit.shape[1], True,
+                    kind="table",
+                )
+            )
     return assigned

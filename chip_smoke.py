@@ -33,11 +33,28 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      a proof over one changed output limb of the add chip; last, the digests
      of the same stages at ``fibonacci_vm(100)`` must equal the reference's,
      committed in ``ceno_tpu_torch/golden/gkr_fibonacci.json``;
-  5. report: phase 3's span tree, the launch counts, a
-     ``{"kernel_shapes": ...}`` line with every shape of phase 2, phase 4's
-     span tree and its ``{"gkr": {...}}`` line, a ``{"kernels": [...]}`` line
-     (the largest shapes; launches over phase 3), the card line and, last,
-     ``{"ok": true, "device": {...}}``.
+  5. the main path end to end, as a user calls it: ``fibonacci_vm(174760)``
+     on the native core (no fallback), ``public_values_from_vm``, ``keygen``
+     at bench.py's ``ZKVMConfig(shl_x_bits=10)`` and ``BasefoldParams()``
+     (its stacked fixed matrix must have the content key that names the
+     golden file, and its fixed codeword, leaves, levels and root must equal
+     the file's), a first ``prove``, a second one with spans on and every
+     witness commit, record, tower layer and sumcheck bank checked to lie on
+     the card, then ``verify`` (the kernels' launch counts are reset just
+     before keygen and before the second prove, and read just after each);
+     both proofs must be the same bytes, and a changed public value,
+     class-main eval and opening row must each be rejected. Last, the proof of ``fibonacci_vm(100)`` at
+     ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and ``BasefoldParams()``
+     must have the SHA-256 and length of the reference's
+     (``ceno_tpu_torch/golden/e2e_fibonacci.json``) and verify;
+  6. report: phase 3's span tree; the launch counts of phase 3 and of
+     phase 5's keygen and timed prove, each equal to its trees' launch
+     plans (K1 once a tree, K2 as ``merkle_plan`` plans it); a
+     ``{"kernel_shapes": ...}`` line with every shape of phase 2; phase 4's
+     span tree and its ``{"gkr": {...}}`` line; phase 5's span tree, its
+     proof size beside the reference's, and its ``{"e2e": {...}}`` line; a
+     ``{"kernels": [...]}`` line (the largest shapes; launches over phase 5's
+     timed prove), the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
 last line. Without a CUDA device it exits 2 and prints no result.
@@ -46,8 +63,10 @@ last line. Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import faulthandler
+import hashlib
 import json
 import os
 import subprocess
@@ -73,8 +92,9 @@ from ceno_tpu_torch.pcs import jagged as jg
 from ceno_tpu_torch.sumcheck import terms
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 from ceno_tpu_torch.utils import cuda_build, spans
-from ceno_tpu_torch.zkvm import layout, witgen
+from ceno_tpu_torch.zkvm import e2e, layout, scheme, serialize, witgen
 from ceno_tpu_torch.zkvm.chips.opcodes import build_opcode_chips
+from ceno_tpu_torch.zkvm.tables import ZKVMConfig
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, ".commit_cache", "commit-8cc386001f1b61172778f21844b7e769.npz")
@@ -99,10 +119,21 @@ MULS_PER_PERM = 772 * 3  # Montgomery products per permutation x 3 multiplies
 # the first witness fold tree (4 rows for one point); K2 runs over their trees
 K1_SHAPES = [(61, 22), (13, 19), (4, 21)]
 SMALL_TREES = range(1, 12)  # log2 of the leaf counts of the small K2 trees
-# log2 of the leaf counts of phase 3's trees: the witness commit and its 13
-# fold trees, the fixed commit and its 10 (folding stops at 2^9 leaves); the
-# launch-plan tests read this list too
-MAIN_PATH_TREES = [22, *range(21, 8, -1), 19, *range(18, 8, -1)]
+
+
+def opening_trees(n_vars: int, params) -> list:
+    """log2 leaf counts of the fold trees one Basefold opening of 2^n_vars
+    rows commits (pcs/basefold.open_batch): one a round while the folded
+    codeword is longer than ``stop_size``, never in the last round."""
+    top = n_vars + params.blowup_log
+    return [top - 1 - r for r in range(n_vars - 1) if (1 << (top - 1 - r)) > params.stop_size]
+
+
+# log2 of the leaf counts of phase 3's trees: the witness commit (2^19 rows,
+# blowup 8) and its 13 fold trees, the fixed commit (2^16 rows) and its 10
+# (folding stops at 2^9 leaves); the launch-plan tests read this list too
+MAIN_PATH_TREES = [22, *opening_trees(19, bf.BasefoldParams()),
+                   19, *opening_trees(16, bf.BasefoldParams())]
 EDGE_SHAPE = (61, 16)  # (C, log2 M) of the edge-word inputs
 DEVICE = "cuda"
 T0 = time.time()
@@ -584,6 +615,247 @@ def gkr_golden_check(n: int = GOLDEN_ITERS) -> dict:
     return got
 
 
+# -- phase 5: keygen -> prove -> verify, end to end --------------------------------
+
+E2E_ITERS = GKR_ITERS                     # bench.py's program: fibonacci_vm(174760)
+E2E_CFG = {"shl_x_bits": 10}              # bench.py's ZKVMConfig
+FIXED_KEY = "8cc386001f1b61172778f21844b7e769"  # the content key GOLDEN is named by
+# the setup of the reference's committed proof digests (tools/torch_e2e_golden.py)
+E2E_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "e2e_fibonacci.json")
+E2E_GOLDEN_ITERS = 100
+E2E_GOLDEN_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
+# the reference's proof size at bench.py's workload: BENCH_r05.json's proof_kib,
+# len(proof_to_bytes) / 1024 (bench.py:154-155), from an older run
+REFERENCE_PROOF_KIB = 816.4
+PROTOCOL_ERRORS = (scheme.ZKVMError, ChipError, TowerError, SumcheckError, bf.PCSError,
+                   jg.JaggedError)
+
+
+def content_key(mat: np.ndarray, blowup_log: int) -> str:
+    """The reference's content key of a fixed matrix, the name of its cached
+    commitment (ceno_tpu/pcs/commitcache.py:33-37)."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(mat, np.uint64).tobytes())
+    h.update(repr((mat.shape, int(blowup_log))).encode())
+    return h.hexdigest()[:32]
+
+
+def fixed_commit_check(pk) -> None:
+    """The key's fixed commitment, made by the port from its own tables, must
+    be the golden one: the matrix's content key names GOLDEN, and the
+    codeword (the NTT encode), the leaves, every level and the root equal
+    the file's."""
+    (committed,) = pk.fixed_committed.values()
+    got = interop.committed_to_numpy(committed)
+    key = content_key(got["cols"], pk.params.blowup_log)
+    if key != FIXED_KEY:
+        fail(f"the key's stacked fixed matrix has content key {key}, not {FIXED_KEY}")
+    with np.load(GOLDEN) as z:
+        if not np.array_equal(got["codeword"], z["cw"].astype(np.uint64)):
+            fail("the key's fixed codeword differs from the golden cw")
+        if not np.array_equal(got["leaves"], z["leaves"].astype(np.uint64)):
+            fail("the key's fixed leaves differ from the golden leaves")
+        n_levels = int(z["n_levels"])
+        if len(got["levels"]) != n_levels:
+            fail(f"the key's fixed tree has {len(got['levels'])} levels, the golden {n_levels}")
+        for i, lv in enumerate(got["levels"]):
+            if not np.array_equal(lv, z[f"level{i}"].astype(np.uint64)):
+                fail(f"the key's fixed tree: level {i} differs from the golden level{i}")
+    log(f"e2e: the key's fixed matrix {got['cols'].shape} has content key {key}; its codeword "
+        f"{got['codeword'].shape}, leaves, {n_levels} levels and root "
+        f"{committed.root.tolist()} equal the golden commitment")
+
+
+def prove_trees(pk, proof) -> list:
+    """log2 leaf counts of every Merkle tree one prove builds: the witness
+    commit, then the fold trees of the witness and the fixed openings."""
+    (n_w,) = proof.witness_roots
+    (n_f,) = pk.fixed_committed
+    b = pk.params.blowup_log
+    n_w, n_f = n_w.bit_length() - 1, n_f.bit_length() - 1
+    return [n_w + b, *opening_trees(n_w, pk.params), *opening_trees(n_f, pk.params)]
+
+
+@contextlib.contextmanager
+def prove_audit():
+    """:func:`device_audit` over a whole prove, with the witness commits
+    (``basefold.commit``: evals and codeword) and the records
+    (``build_tower_inputs``) recorded as well."""
+    originals = (bf.commit, gkr_chip.build_tower_inputs)
+
+    def commit(*args, **kwargs):
+        out = originals[0](*args, **kwargs)
+        seen["commits"] += [out.cols.device.type, out.codeword.device.type]
+        return out
+
+    def tower_inputs(*args, **kwargs):
+        out = originals[1](*args, **kwargs)
+        seen["records"] += [x.device.type for x in out.prods + [m for pq in out.lps for m in pq]]
+        return out
+
+    with device_audit() as seen:
+        seen.update(commits=[], records=[])
+        bf.commit, gkr_chip.build_tower_inputs = commit, tower_inputs
+        try:
+            yield seen
+        finally:
+            bf.commit, gkr_chip.build_tower_inputs = originals
+
+
+def on_device(seen: dict) -> dict:
+    """Every entry of ``seen`` lies on DEVICE's kind; returns the counts."""
+    want = torch.device(DEVICE).type
+    for what, devices in seen.items():
+        if not devices or set(devices) != {want}:
+            fail(f"prove: {what} on {sorted(set(devices))}, not on {want}")
+    return {what: len(devices) for what, devices in seen.items()}
+
+
+def bump(a: np.ndarray, index) -> None:
+    a[index] = (int(a[index]) + 1) % bb.P
+
+
+def tampered(proof) -> list:
+    """(what, proof) pairs, each changed in one place the verifier must
+    reject: a public value (the exit code), one witness eval of the largest
+    class's main zerocheck, one codeword entry of the witness opening's
+    first query."""
+    out = []
+    bad = copy.deepcopy(proof)
+    bump(bad.public_values, layout.PV_EXIT_CODE_LO)
+    out.append(("public value", bad))
+    bad = copy.deepcopy(proof)
+    bump(bad.class_main[max(bad.class_main)].wit_evals[0], (0, 0))
+    out.append(("class-main eval", bad))
+    bad = copy.deepcopy(proof)
+    (opening,) = bad.witness_openings.values()
+    bump(opening.opening.queries[0].base_rows, (0, 0))
+    out.append(("opening row", bad))
+    return out
+
+
+def stage_seconds(tree: dict) -> dict:
+    """The prove's top-level spans summed by stage."""
+    stages = {"witgen": "witgen", "commit": "commit/", "records": "records/",
+              "towers": "towers/", "class_main": "class-main/", "openings": "open/"}
+    return {stage: sum(node["total"] for name, node in tree.items() if name.startswith(prefix))
+            for stage, prefix in stages.items()}
+
+
+def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
+    """The main path at fibonacci_vm(n): the native emulator (no fallback),
+    the public values, keygen (then ``key_check(pk)``), a first prove, a
+    second prove with spans and the device audit on, then verify; both
+    proofs must be the same bytes, and each tampered proof must be rejected.
+    The launch counts are reset just before keygen and before the second
+    prove, and read just after each. Returns (the ``e2e`` line, the timed
+    prove's span report, {"keygen" | "prove": (launches, planned trees)})."""
+    seconds = {}
+    t0 = time.time()
+    vm = programs.fibonacci_vm(n)
+    trace = native.run_trace_native(vm)
+    seconds["emulate"] = time.time() - t0
+    if (trace.n != sum(fib_rows(n).values()) or not vm.halted
+            or vm.regs[10] != programs.fib_expected(n)):
+        fail(f"fibonacci_vm({n}) ran {trace.n} steps (halted {vm.halted}), a0 = {vm.regs[10]}")
+    pv = e2e.public_values_from_vm(vm, cfg)
+    pm.reset_launches()
+    t0 = time.time()
+    pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
+    sync()
+    seconds["keygen"] = time.time() - t0
+    (fixed,) = pk.fixed_committed.values()
+    counted = {"keygen": (dict(pm.LAUNCHES), [fixed.n_vars + params.blowup_log])}
+    log(f"e2e: fibonacci_vm({n}), {trace.n} steps emulated in {seconds['emulate']:.2f}s; "
+        f"keygen ({len(pk.metas)} chips) in {seconds['keygen']:.2f}s")
+    if key_check:
+        key_check(pk)
+    t0 = time.time()
+    first = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+    sync()
+    seconds["prove_first"] = time.time() - t0
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spans.enable()
+    with prove_audit() as seen:
+        pm.reset_launches()
+        t0 = time.time()
+        proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+        sync()
+        seconds["prove"] = time.time() - t0
+        counted["prove"] = (dict(pm.LAUNCHES), prove_trees(pk, proof))
+    tree, span_report = spans.tree(), spans.report(min_seconds=0.01)
+    spans.disable()
+    checked = on_device(seen)
+    peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
+    log(f"e2e: proved in {seconds['prove_first']:.2f}s, then {seconds['prove']:.2f}s; "
+        f"on {DEVICE}: {checked}")
+    data = serialize.proof_to_bytes(proof, pv, pk.cfg, pk.params)
+    if serialize.proof_to_bytes(first, pv, pk.cfg, pk.params) != data:
+        fail("e2e: two proves of the same trace gave different proofs")
+    t0 = time.time()
+    if scheme.verify(pk.vk, proof) is not True:
+        fail("e2e: the verifier did not accept the honest proof")
+    seconds["verify"] = time.time() - t0
+    log(f"e2e: verified in {seconds['verify']:.2f}s; proof {len(data)} bytes")
+    for what, bad in tampered(proof):
+        try:
+            scheme.verify(pk.vk, bad)
+        except PROTOCOL_ERRORS as e:
+            log(f"e2e: a changed {what} rejected ({type(e).__name__}: {str(e)[:80]})")
+        else:
+            fail(f"e2e: a proof with a changed {what} was accepted")
+    seconds["witgen"] = tree["witgen"]["total"]
+    active = [(m, k, scheme.chip_height(m, k)) for m, k in zip(pk.metas, proof.num_instances) if k]
+    groups, classes = {}, {}
+    for m, _, h in active:
+        rho = gkr_chip.interleave_geometry(m.compiled)[0]
+        groups.setdefault(f"2^{(h << rho).bit_length() - 1}", []).append(m.name)
+        classes.setdefault(f"2^{h.bit_length() - 1}", []).append(m.name)
+    line = {"program": f"fibonacci_vm({n})", "steps": trace.n, "device": DEVICE,
+            "cfg": dataclasses.asdict(pk.cfg), "params": dataclasses.asdict(pk.params),
+            "seconds": seconds, "stage_seconds": stage_seconds(tree),
+            "spans": {name: node["total"] for name, node in tree.items()},
+            "witgen_spans": {name: node["total"]
+                             for name, node in tree["witgen"]["children"].items()},
+            "proof_bytes": len(data), "proof_kib": len(data) / 1024,
+            "reference_proof_kib": REFERENCE_PROOF_KIB, "max_memory_allocated": peak,
+            "launches": {path: c[0] for path, c in counted.items()}, "chips": len(pk.metas),
+            "active_chips": {m.name: {"rows": k, "height": h} for m, k, h in active},
+            "tower_groups": groups, "classes": classes, "checked_on_device": checked}
+    if sorted(groups) != sorted(f"2^{n_t.bit_length() - 1}" for n_t in proof.tower_groups):
+        fail(f"e2e: tower groups {sorted(groups)} against the proof's {sorted(proof.tower_groups)}")
+    return line, span_report, counted
+
+
+def e2e_golden_check() -> dict:
+    """The port's proof of the reference's committed setup: its bytes' SHA-256
+    and length, and the key's digest, must equal E2E_GOLDEN's; the port's
+    verifier must accept it."""
+    with open(E2E_GOLDEN) as f:
+        want = json.load(f)
+    setup = {"program": f"fibonacci_vm({E2E_GOLDEN_ITERS})", "cfg": E2E_GOLDEN_CFG,
+             "params": dataclasses.asdict(bf.BasefoldParams())}
+    if {k: want[k] for k in setup} != setup:
+        fail(f"{os.path.relpath(E2E_GOLDEN, ROOT)} names {want}, chip_smoke proves {setup}")
+    cfg, params = ZKVMConfig(**E2E_GOLDEN_CFG), bf.BasefoldParams()
+    vm = programs.fibonacci_vm(E2E_GOLDEN_ITERS)
+    trace = native.run_trace_native(vm)
+    pv = e2e.public_values_from_vm(vm, cfg)
+    pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
+    proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+    data = serialize.proof_to_bytes(proof, pv, pk.cfg, pk.params)
+    got = {"proof_sha256": hashlib.sha256(data).hexdigest(), "proof_bytes": len(data),
+           "vk_digest_sha256": hashlib.sha256(pk.vk.digest_elems().tobytes()).hexdigest()}
+    if got != {k: want[k] for k in got}:
+        fail(f"the proof of {setup['program']} differs from the reference's: {got} against {want}")
+    if scheme.verify(pk.vk, proof) is not True:
+        fail(f"the proof of {setup['program']} was not accepted")
+    log(f"e2e: the proof of {setup['program']} at BasefoldParams() equals the reference's "
+        f"({len(data)} bytes, sha256 {got['proof_sha256'][:16]}...) and verifies")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -627,22 +899,37 @@ def main() -> int:
         gkr["golden_digests"] = gkr_golden_check()
         gkr["seconds"]["golden_check"] = time.time() - t
         gkr_report = gkr.pop("span_report")
+    torch.cuda.empty_cache()
 
-    with phase("5 report"):
+    with phase("5 e2e"):
+        e2e_line, e2e_report, e2e_counted = run_e2e(
+            E2E_ITERS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams(), key_check=fixed_commit_check)
+        t = time.time()
+        e2e_line["golden"] = e2e_golden_check()
+        e2e_line["seconds"]["golden_check"] = time.time() - t
+
+    with phase("6 report"):
         print(pcs_report, flush=True)
-        log(f"launches on the main path: {launches}")
-        expected = {"leaf_sponge": len(MAIN_PATH_TREES),
-                    "compress_level": sum(len(pm.merkle_plan(1 << n)) for n in MAIN_PATH_TREES)}
+        for path, (counted, trees) in (("PCS slice (phase 3)", (launches, MAIN_PATH_TREES)),
+                                       ("e2e keygen (phase 5)", e2e_counted["keygen"]),
+                                       ("e2e prove (phase 5)", e2e_counted["prove"])):
+            expected = {"leaf_sponge": len(trees),
+                        "compress_level": sum(len(pm.merkle_plan(1 << n)) for n in trees)}
+            log(f"launches over the {path}: {counted}; its {len(trees)} trees' launch plans "
+                f"give {expected}")
+            if counted != expected:
+                fail(f"launches over the {path}: {counted}, the launch plans give {expected}")
         for k in kernels:
-            k["launches"] = launches[k["name"]]
+            k["launches"] = e2e_counted["prove"][0][k["name"]]
             if k["launches"] <= 0:
                 fail(f"kernel {k['name']} was not launched on the main path")
-            if k["launches"] != expected[k["name"]]:
-                fail(f"kernel {k['name']}: {k['launches']} launches on the main path, "
-                     f"its launch plan gives {expected[k['name']]}")
         print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
         print(gkr_report, flush=True)
         print(json.dumps({"gkr": gkr}), flush=True)
+        print(e2e_report, flush=True)
+        log(f"e2e: proof of {e2e_line['program']}: {e2e_line['proof_kib']:.1f} KiB; the "
+            f"reference's, BENCH_r05.json: {REFERENCE_PROOF_KIB} KiB (an older run)")
+        print(json.dumps({"e2e": e2e_line}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

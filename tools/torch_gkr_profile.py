@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Where the card's time goes in chip_smoke's GKR phase, by stage and by
-operation, from a torch.profiler trace.
+"""Where the card's time goes in chip_smoke's GKR phase or in a whole
+prove, by stage and by operation, from a torch.profiler trace.
 
-    python3 tools/torch_gkr_profile.py [--iters N]
+    python3 tools/torch_gkr_profile.py [--iters N] [--e2e]
 
 Runs ``fibonacci_vm(N)`` (default chip_smoke.GKR_ITERS, the full width) on
-the native core, assigns the opcode chips, proves the GKR stages once
+the native core. Without ``--e2e`` it assigns the opcode chips and proves
+the GKR stages (chip_smoke phase 4); with ``--e2e`` it makes the key
+(``ZKVMConfig(shl_x_bits=10)``, ``BasefoldParams()``, chip_smoke phase 5)
+and runs the whole ``zkvm/scheme.prove``. Either way it proves once
 unprofiled (warm-up), then once more under ``torch.profiler`` with every
 stage and every operation family wrapped in a ``record_function`` range:
 
   stages:     records (``build_tower_inputs``), towers (``prove_group_towers``),
-              class_main (``prove_class_main``);
+              class_main (``prove_class_main``); with ``--e2e`` also witgen
+              (``generate_witness``), commit (``basefold.commit``) and
+              openings (``jagged.open_jagged``);
   operations: record_eval (the record builder, K9), tower_layers
               (``product_layers`` / ``logup_layers``, K8's trees),
               round_evals and folds (the sumcheck term kernels, K6), banks
               (``make_banks``), eq (``build_eq``), to_host (device -> host
-              copies, where every sumcheck round waits for the card).
+              copies, where every sumcheck round waits for the card),
+              encode (the NTT, K4), merkle (``hash_and_tree`` and
+              ``fold_codewords_and_tree``: K1, K2 and the fold before them).
 
 It prints one JSON line: the profiled prove's wall seconds, the device's
 busy seconds (the union of its kernel and copy intervals) and idle share,
-each range's host and device seconds, and the kernels with the most device
-time (the device events exclude the annotation ranges the profiler mirrors
+each range's host and device seconds, K1's and K2's calls and device
+seconds twice (from the trace by kernel name, and from CUDA events around
+each call of their wrappers), and the kernels with the most device time (the device events exclude the annotation ranges the profiler mirrors
 on the device's timeline). The card's name and power limit come first.
 Without a CUDA device it exits 2.
 """
@@ -45,22 +53,61 @@ import chip_smoke as cs  # noqa: E402
 from ceno_tpu_torch.fields import babybear as bb  # noqa: E402
 from ceno_tpu_torch.gkr import chip as gkr_chip  # noqa: E402
 from ceno_tpu_torch.gkr import tower  # noqa: E402
+from ceno_tpu_torch.hash import poseidon2_merkle as pm  # noqa: E402
 from ceno_tpu_torch.mle import ops  # noqa: E402
+from ceno_tpu_torch.pcs import basefold, jagged, ntt  # noqa: E402
 from ceno_tpu_torch.sumcheck import terms  # noqa: E402
+from ceno_tpu_torch.zkvm import e2e, scheme  # noqa: E402
+from ceno_tpu_torch.zkvm.tables import ZKVMConfig  # noqa: E402
 
 STAGES = {"records": (gkr_chip, "build_tower_inputs"), "towers": (gkr_chip, "prove_group_towers"),
           "class_main": (gkr_chip, "prove_class_main")}
+E2E_STAGES = {"witgen": (scheme, "generate_witness"), "commit": (basefold, "commit"),
+              **STAGES, "openings": (jagged, "open_jagged")}
 OPS = {"record_eval": [(gkr_chip, "build_records")],
        "tower_layers": [(tower, "product_layers"), (tower, "logup_layers")],
        "round_evals": [(terms, "round_evals")],
        "folds": [(terms, "fold_banks"), (terms, "fold_ext_bank")],
        "banks": [(terms, "make_banks")],
        "eq": [(ops, "build_eq")],
-       "to_host": [(bb, "to_host")]}
+       "to_host": [(bb, "to_host")],
+       "encode": [(ntt, "encode")],
+       "merkle": [(basefold, "hash_and_tree"), (basefold, "fold_codewords_and_tree")]}
+
+# the hand-written kernels: the part of their names in the trace, and the
+# wrapper (module attribute) that launches them
+PORTED_KERNELS = {"K1": ("leaf_sponge_kernel", "leaf_sponge"),
+                  "K2": ("merkle_levels", "merkle_levels")}
 
 
 @contextlib.contextmanager
-def ranges():
+def wrapper_events(times: dict):
+    """Time each call of the K1 and K2 wrappers with CUDA events on the
+    current stream, for the block's length; ``times[label]`` collects the
+    (start, end) pairs, read after the block's last synchronize."""
+    saved = []
+    for label, (_, attr) in PORTED_KERNELS.items():
+        fn = getattr(pm, attr)
+        saved.append((attr, fn))
+        times[label] = []
+
+        def inner(*args, _fn=fn, _label=label, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _fn(*args, **kwargs)
+            end.record()
+            times[_label].append((start, end))
+            return out
+        setattr(pm, attr, inner)
+    try:
+        yield
+    finally:
+        for attr, fn in saved:
+            setattr(pm, attr, fn)
+
+
+@contextlib.contextmanager
+def ranges(stages: dict):
     """Wrap each stage and operation function in a record_function range of
     its name for the block's length (module attributes, which their callers
     look up at each call)."""
@@ -75,7 +122,7 @@ def ranges():
                 return fn(*args, **kwargs)
         setattr(mod, attr, inner)
 
-    for label, (mod, attr) in STAGES.items():
+    for label, (mod, attr) in stages.items():
         wrap(mod, attr, f"stage:{label}")
     for label, targets in OPS.items():
         for mod, attr in targets:
@@ -113,7 +160,9 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
     """The ranges' host seconds (their CPU intervals) and device seconds (the
     kernels launched inside them, nested ranges included: an operation's
     time also counts in its stage), the device's busy seconds and idle
-    share over the profiled wall time, and the kernels by device time."""
+    share over the profiled wall time, the kernels by device time, and the
+    calls and device seconds that the trace shows for the hand-written
+    kernels (PORTED_KERNELS, by a part of their names)."""
     events = prof.events()
     ranges_ = {}
     for e in events:
@@ -129,11 +178,15 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
             k["calls"] += 1
             k["device_s"] += _elapsed_s(e)
     busy = busy_seconds(events)
+    ported = {label: {"trace_calls": sum(k["calls"] for n, k in kernels.items() if part in n),
+                      "trace_device_s": sum(k["device_s"] for n, k in kernels.items() if part in n)}
+              for label, (part, _) in PORTED_KERNELS.items()}
     return {
         "wall_s": wall_s, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall_s if wall_s else None,
         "device_events": sum(k["calls"] for k in kernels.values()),
         "ranges": dict(sorted(ranges_.items())),
+        "ported_kernels": ported,
         "top_device": [dict(name=n, **k) for n, k in sorted(
             kernels.items(), key=lambda kv: -kv[1]["device_s"])[:top]],
     }
@@ -142,27 +195,50 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=cs.GKR_ITERS)
+    ap.add_argument("--e2e", action="store_true", help="profile the whole zkvm/scheme.prove")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_gkr_profile: no CUDA device", file=sys.stderr)
         return 2
     print(cs.card_line(), flush=True)
     cs.DEVICE = "cuda"
-    vm, assigned, seconds = cs.emulate_and_assign(args.iters)
-    pv = cs.public_values(vm)
+    if args.e2e:
+        t0 = time.time()
+        vm = cs.programs.fibonacci_vm(args.iters)
+        trace = cs.native.run_trace_native(vm)
+        cfg = ZKVMConfig(**cs.E2E_CFG)
+        pk = scheme.keygen(vm.program, cfg, basefold.BasefoldParams(), device="cuda")
+        pv = e2e.public_values_from_vm(vm, cfg)
+        seconds = {"emulate_and_keygen": time.time() - t0}
+        steps, stages, key = trace.n, E2E_STAGES, "e2e_profile"
+
+        def prove():
+            scheme.prove(pk, vm, trace, pv, device="cuda")
+    else:
+        vm, assigned, seconds = cs.emulate_and_assign(args.iters)
+        pv = cs.public_values(vm)
+        steps, stages, key = sum(a.num_instances for a in assigned), STAGES, "gkr_profile"
+
+        def prove():
+            cs.gkr_prove(assigned, pv)
     t0 = time.time()
-    cs.gkr_prove(assigned, pv)
+    prove()
     torch.cuda.synchronize()
     warm_s = time.time() - t0
-    with ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    times: dict = {}
+    with ranges(stages), wrapper_events(times), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        cs.gkr_prove(assigned, pv)
+        prove()
         torch.cuda.synchronize()
         wall_s = time.time() - t0
     out = summarize(prof, wall_s)
-    out.update(program=f"fibonacci_vm({args.iters})", steps=sum(a.num_instances for a in assigned),
+    for label, pairs in times.items():
+        out["ported_kernels"][label].update(
+            wrapper_calls=len(pairs), event_device_s=sum(a.elapsed_time(b) for a, b in pairs) / 1e3)
+    out.update(program=f"fibonacci_vm({args.iters})", steps=steps,
                unprofiled_prove_s=warm_s, host_s=seconds)
-    print(json.dumps({"gkr_profile": out}), flush=True)
+    print(json.dumps({key: out}), flush=True)
     return 0
 
 
