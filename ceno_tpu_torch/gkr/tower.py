@@ -1,13 +1,25 @@
 """Tower arguments: grand products and LogUp fraction sums over record MLEs.
 
-Counterpart of ``ceno_tpu/gkr/tower.py``, its per-level path: the layers are
-built as plain torch on the records' device, every level's batched degree-3
-sumcheck runs through :func:`ceno_tpu_torch.sumcheck.prover.prove` on that
-device, and the verifier replays the transcript on the host in numpy. The
-reference's size crossover (``_TOWER_HOST_N`` and its host mirrors of small
-layers) has no counterpart: the 2-entry levels run on the device too. Its
-fused all-levels branch (``_prove_levels_fused``) gives the same bytes and is
-not ported yet.
+Counterpart of ``ceno_tpu/gkr/tower.py``: the layers are built as plain
+torch on the records' device, and the levels' batched degree-3 sumchecks run
+on that device in one of two ways that give the same bytes:
+
+  * fused (the default, as in the reference; ``CENO_TPU_TORCH_FUSED_TOWER=0``
+    turns it off): :func:`_fused_tower_levels` runs every level of the group
+    on the device with the on-device duplex (``sumcheck/fused.py``): alpha
+    and its powers, the scalars, eq(rt), the banks, the rounds, the level's
+    evals and mu, each sampled or absorbed on the card; the host fetches one
+    buffer and replays it (:func:`_prove_levels_fused`);
+  * per level: each level's sumcheck through
+    :func:`ceno_tpu_torch.sumcheck.prover.prove`, with the host sampling
+    alpha and mu.
+
+The verifier replays the transcript on the host in numpy. The reference's
+size crossover (``_TOWER_HOST_N`` and its host mirrors of small layers) has
+no counterpart: the 2-entry levels run on the device too; nor has its
+chunking of the fused levels into programs of at most
+``CENO_TPU_FUSED_TOWER_LEVELS`` (an XLA program-size limit): a group runs all
+its levels in one pass.
 
 Protocol (this framework's convention — halves split instead of the
 reference's interleave, matching our top-variable fold):
@@ -31,6 +43,7 @@ Transcript order (fixed contract, see verify_towers):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -41,7 +54,9 @@ from ..fields import ext4
 from ..fields import ext4_host as exth
 from ..hash.transcript import Transcript
 from ..mle import ops
+from ..sumcheck import fused as F
 from ..sumcheck import prover as sc_prover
+from ..sumcheck import terms as T
 from ..sumcheck import verifier as sc_verifier
 from ..sumcheck.prover import TermSpec
 
@@ -127,6 +142,26 @@ def _stack_claims(prod_claims, logup_claims):
     )
 
 
+def _level_terms(n_prod: int, n_logup: int) -> tuple:
+    """A level's terms over its ext bank [eq, L_0, R_0, ...]: (the alpha
+    power each term takes, its eidx), products first, then per LogUp spec
+    pL*qR, pR*qL (both alpha_a) and qL*qR (alpha_{a+1})."""
+    alpha_idx, eidx = [], []
+    li, a = 1, 0
+    for _ in range(n_prod):
+        alpha_idx.append(a)
+        eidx.append((0, li, li + 1))
+        li += 2
+        a += 1
+    for _ in range(n_logup):
+        pL, pR, qL, qR = li, li + 1, li + 2, li + 3
+        alpha_idx += [a, a, a + 1]
+        eidx += [(0, pL, qR), (0, pR, qL), (0, qL, qR)]
+        li += 4
+        a += 2
+    return alpha_idx, eidx
+
+
 # ---------------------------------------------------------------------------
 # Prover
 # ---------------------------------------------------------------------------
@@ -178,6 +213,10 @@ def prove_towers(
         for s in range(len(logup_lys))
     ]
 
+    if n_vars > 1 and fused_tower_enabled():
+        rt, prod_claims, logup_claims = _prove_levels_fused(proof, prod_lys, logup_lys, rt,
+                                                            transcript)
+        return proof, rt, _stack_claims(prod_claims, logup_claims)
     for level in range(1, n_vars):
         n_claims = len(prod_claims) + 2 * len(logup_claims)
         alphas = transcript.sample_ext_pows(n_claims)
@@ -188,20 +227,8 @@ def prove_towers(
         # one stacked block; the column positions fix the terms and so the
         # proof bytes
         ext_cols = [ops.build_eq(bb.to_device(rt, dev)), split_specs(level_layers)]
-        term_list = []
-        a = 0
-        li = 1
-        for s in range(len(prod_lys)):
-            term_list.append(TermSpec(alphas[a], eidx=(0, li, li + 1)))
-            li += 2
-            a += 1
-        for s in range(len(logup_lys)):
-            pL, pR, qL, qR = li, li + 1, li + 2, li + 3
-            li += 4
-            term_list.append(TermSpec(alphas[a], eidx=(0, pL, qR)))
-            term_list.append(TermSpec(alphas[a], eidx=(0, pR, qL)))
-            term_list.append(TermSpec(alphas[a + 1], eidx=(0, qL, qR)))
-            a += 2
+        term_list = [TermSpec(alphas[a], eidx=e)
+                     for a, e in zip(*_level_terms(len(prod_lys), len(logup_lys)))]
         out = sc_prover.prove([], ext_cols, term_list, level, transcript)
         proof.round_msgs.append(out.proof.round_msgs)
         # evals: per spec the half evaluations at the sumcheck point
@@ -214,6 +241,117 @@ def prove_towers(
         prod_claims, logup_claims = _fold_claims(evals, mu, len(prod_lys), len(logup_lys))
 
     return proof, rt, _stack_claims(prod_claims, logup_claims)
+
+
+# ---------------------------------------------------------------------------
+# Fused levels: every level of a group on the device
+# ---------------------------------------------------------------------------
+
+def fused_tower_enabled() -> bool:
+    """The fused levels' switch: on unless CENO_TPU_TORCH_FUSED_TOWER is "0"."""
+    return os.environ.get("CENO_TPU_TORCH_FUSED_TOWER", "1") != "0"
+
+
+def _level_static(n_prod: int, n_logup: int):
+    """A level's term tables, the same at every level: (bidx, eidx, midx,
+    alpha_idx, deg). compile_terms pads the term count to a power of two with
+    zero-scalar terms; their alpha_idx points at a zero slot after the
+    n_claims powers, so the scalars gathered on the device are zero there."""
+    alpha_idx, eidx = _level_terms(n_prod, n_logup)
+    n_ext = 1 + 2 * n_prod + 4 * n_logup  # eq + the split columns
+    one = np.array([1, 0, 0, 0], np.uint64)
+    bidx, eidx, _, deg = sc_prover.compile_terms(
+        [TermSpec(one, eidx=e) for e in eidx], 0, n_ext)
+    n_claims = n_prod + 2 * n_logup
+    alpha_idx = alpha_idx + [n_claims] * (bidx.shape[0] - len(alpha_idx))
+    midx = T.merge_indices(bidx, eidx, 0, n_ext)
+    return bidx, eidx, midx, np.asarray(alpha_idx, np.int64), deg
+
+
+def _fused_tower_levels(prod_lys, logup_lys, state, rt, *, pos: int, sq_pos: int,
+                        absorbed: bool):
+    """Levels 1 .. n_vars-1 of one group on the layers' device, with the
+    duplex started from ``state`` ((16,) Montgomery) and the host's (pos,
+    sq_pos, absorbed); ``rt`` is the (1, 4) Montgomery layer-1 point. Per
+    level: sample alpha with its powers, gather the terms' scalars, eq(rt),
+    the banks from the split layers, the rounds (K6a, K5/K7, K6b), absorb the
+    level's evals and sample mu into the next point, all without a host
+    synchronisation. Returns (one flat buffer: per level the (level, deg+1,
+    4) messages then the (S_e, 4) evals, the sponge's end state)."""
+    n_prod, n_logup = len(prod_lys), len(logup_lys)
+    n_vars = len(prod_lys[0] if prod_lys else logup_lys[0][0])
+    n_claims, s_e = n_prod + 2 * n_logup, 2 * n_prod + 4 * n_logup
+    bidx_np, eidx_np, midx_np, alpha_idx_np, deg = _level_static(n_prod, n_logup)
+    dev = rt.device
+    tables = [torch.from_numpy(a) for a in (bidx_np, eidx_np, midx_np)]
+    F.check_tables(*tables, 1, s_e + 2)  # on the host: no synchronisation
+    bidx, eidx, midx = (a.to(dev) for a in tables)
+    alpha_idx = torch.from_numpy(alpha_idx_np).to(dev)
+    sizes = [(level * (deg + 1) * 4, s_e * 4) for level in range(1, n_vars)]
+    flat = torch.empty(sum(a + b for a, b in sizes), dtype=bb.DTYPE, device=dev)
+    pows = torch.zeros((4, n_claims + 1), dtype=bb.DTYPE, device=dev)  # last: the zero slot
+    alpha = torch.empty(4, dtype=bb.DTYPE, device=dev)
+    dpx = F._DeviceDuplex(state.clone(), pos, sq_pos, absorbed)
+    off = 0
+    for level, (n_m, n_e) in zip(range(1, n_vars), sizes):
+        dpx.sample_ext(alpha, pows=pows[:, :n_claims])
+        scalars = pows[:, alpha_idx]
+        layers = [ls[level] for ls in prod_lys] + [
+            lys[i][level] for lys in logup_lys for i in (0, 1)]
+        base_bank, ext_bank = T.make_banks([], [ops.build_eq(rt), split_specs(layers)],
+                                           1 << level)
+        msgs = flat[off : off + n_m].view(level, deg + 1, 4)
+        rt_next = torch.empty((level + 1, 4), dtype=bb.DTYPE, device=dev)
+        # round r's challenge binds variable level-1-r: the point is LSB-first
+        merged = F.run_rounds(base_bank, ext_bank, bidx, eidx, midx, scalars, dpx, msgs,
+                              [rt_next[level - 1 - r] for r in range(level)], deg=deg)
+        del base_bank, ext_bank
+        evals = flat[off + n_m : off + n_m + n_e].view(s_e, 4)
+        evals.copy_(merged[:, 1:-1, 0].T)  # drop eq and the sentinel
+        dpx.sample_ext(rt_next[level], absorb=evals.view(-1))
+        rt = rt_next
+        off += n_m + n_e
+    return flat, dpx.state
+
+
+def _prove_levels_fused(proof, prod_lys, logup_lys, rt, transcript):
+    """Every level of the group through :func:`_fused_tower_levels`, then
+    the same absorbs and samples on the host transcript from the fetched
+    buffer: the proof's round messages and level evals, the next claims and
+    point. Raises RuntimeError if the device's sponge ends elsewhere than the
+    host's. Returns (rt (n_vars, 4), prod_claims, logup_claims)."""
+    n_prod, n_logup = len(prod_lys), len(logup_lys)
+    n_vars = len(prod_lys[0] if prod_lys else logup_lys[0][0])
+    n_claims, s_e = n_prod + 2 * n_logup, 2 * n_prod + 4 * n_logup
+    dev = (prod_lys[0] if prod_lys else logup_lys[0][0])[0].device
+    st, pos, sq_pos, absorbed = transcript.export_state()
+    flat_dev, end_state = _fused_tower_levels(
+        prod_lys, logup_lys, bb.to_device(st, dev), bb.to_device(rt, dev),
+        pos=pos, sq_pos=sq_pos, absorbed=absorbed)
+    flat = bb.to_host(torch.cat([flat_dev, end_state]))  # the one copy to the host
+    deg = _level_static(n_prod, n_logup)[4]
+    off = 0
+    for level in range(1, n_vars):
+        transcript.sample_ext_pows(n_claims)  # alpha: its powers were used on the device
+        n_m = level * (deg + 1) * 4
+        msgs = flat[off : off + n_m].reshape(level, deg + 1, 4).copy()
+        evals = flat[off + n_m : off + n_m + s_e * 4].reshape(s_e, 4).copy()
+        off += n_m + s_e * 4
+        chs = []
+        for r in range(level):
+            transcript.append(msgs[r].ravel())
+            chs.append(np.array(transcript.sample_ext(), np.uint64))
+        proof.round_msgs.append(msgs)
+        proof.level_evals.append(evals)
+        transcript.append(evals.ravel())
+        mu = np.array(transcript.sample_ext(), np.uint64)
+        rt = np.stack(chs[::-1] + [mu])
+        prod_claims, logup_claims = _fold_claims(evals, mu, n_prod, n_logup)
+    if not np.array_equal(flat[off:], transcript.state):
+        raise RuntimeError(
+            f"prove_towers ({n_vars} vars, {n_prod} product and {n_logup} LogUp specs): the "
+            "device duplex ended in another sponge state than the host transcript's replay")
+    return rt, prod_claims, logup_claims
 
 
 # ---------------------------------------------------------------------------

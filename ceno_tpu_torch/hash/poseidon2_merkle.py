@@ -74,11 +74,6 @@ def _check_digests(x: torch.Tensor, what: str, power_of_two: bool) -> None:
         raise ValueError(f"{what}: expected (8, m) digests with m {kind}, got {tuple(x.shape)}")
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
-
-
 # ---------------------------------------------------------------------------
 # Plain torch versions (CPU path and the card-side comparison)
 # ---------------------------------------------------------------------------
@@ -183,10 +178,9 @@ def leaf_sponge(cols: torch.Tensor) -> torch.Tensor:
     _check(cols, "leaf_sponge")
     c, m = cols.shape
     out = torch.empty((p2.DIGEST_ELEMS, m), dtype=bb.DTYPE, device=cols.device)
-    with torch.cuda.device(cols.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(_lib().p2_leaf_sponge(cols.data_ptr(), out.data_ptr(), c, m, stream),
-                  "leaf_sponge")
+    with cuda_build.launch_stream(cols) as stream:
+        rc = _lib().p2_leaf_sponge(cols.data_ptr(), out.data_ptr(), c, m, stream)
+    cuda_build.raise_on(rc, "leaf_sponge")
     LAUNCHES["leaf_sponge"] += 1
     return out
 
@@ -195,11 +189,10 @@ def _launch_k2(leaves: torch.Tensor, out: torch.Tensor, plan, n_launches: int,
                what: str) -> None:
     if leaves.data_ptr() % 8:  # the kernel reads children in 8-byte pairs
         raise ValueError(f"{what}: the digests' address is not 8-byte aligned")
-    with torch.cuda.device(leaves.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with cuda_build.launch_stream(leaves) as stream:
         rc = _lib().p2_merkle_levels(leaves.data_ptr(), out.data_ptr(), leaves.shape[1],
                                      plan, n_launches, stream)
-    _raise_on(rc, what)
+    cuda_build.raise_on(rc, what)
     LAUNCHES["compress_level"] += n_launches
 
 

@@ -1,11 +1,19 @@
-"""Sumcheck prover: a host round loop over the torch term kernels.
+"""Sumcheck prover over the term kernels K6a and K6b (``sumcheck/terms.py``).
 
-Counterpart of ``ceno_tpu/sumcheck/prover.py`` with its per-round loop only:
-per round, evaluate the batched univariate at t = 0..deg on the device, absorb
-it into the transcript, sample one ext challenge, fold. The reference's fused
-all-rounds program (``sumcheck/fused.py``) is an optimisation whose messages
-and end state equal this loop's; it is not ported yet. Every round runs on the
-columns' own device: there is no host tail.
+Counterpart of ``ceno_tpu/sumcheck/prover.py``. Two paths give the same
+messages, point, final evals and transcript state:
+
+  * fused (the default, as in the reference; ``CENO_TPU_TORCH_FUSED=0``
+    turns it off): every round on the device with the on-device duplex
+    (``sumcheck/fused.py``), one copy to the host at the end, then the host
+    replays the absorbs and samples and checks that both sponges end in the
+    same state;
+  * per round: evaluate the batched univariate at t = 0..deg on the device,
+    absorb it into the host transcript, sample one ext challenge, fold. It is
+    the path of a caller with a ``round_hook`` (Basefold folds its oracles
+    there) and the tests' oracle.
+
+Every round runs on the columns' own device: there is no host tail.
 
 Variable order: round k binds the current TOP variable; the returned opening
 point is LSB-first (point[j] <-> var j), i.e. challenges reversed.
@@ -13,6 +21,7 @@ point is LSB-first (point[j] <-> var j), i.e. challenges reversed.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,6 +30,7 @@ import torch
 from ..fields import babybear as bb
 from ..fields import ext4
 from ..hash.transcript import Transcript
+from . import fused as F
 from . import terms as T
 
 
@@ -66,6 +76,11 @@ def compile_terms(term_list: list[TermSpec], n_base: int, n_ext: int):
     return bidx, eidx, scal, deg
 
 
+def fused_enabled() -> bool:
+    """The fused path's switch: on unless CENO_TPU_TORCH_FUSED is "0"."""
+    return os.environ.get("CENO_TPU_TORCH_FUSED", "1") != "0"
+
+
 def prove(
     base_cols,
     ext_cols,
@@ -78,7 +93,8 @@ def prove(
 
     ``base_cols`` are (N,) tensors; ``ext_cols`` are (4, N) tensors or
     (4, k, N) blocks of k columns. ``round_hook(rnd, challenge)`` runs after
-    each challenge is sampled (Basefold folds its oracles there)."""
+    each challenge is sampled (Basefold folds its oracles there); without
+    one the fused path runs unless it is switched off."""
     n_base = len(base_cols)
     n_ext = sum(c.shape[1] if c.dim() == 3 else 1 for c in ext_cols)
     n = 1 << n_vars
@@ -87,12 +103,32 @@ def prove(
     live = np.nonzero(scal_np.any(axis=1))[0]  # padding terms weigh zero
     base_bank, ext_bank = T.make_banks(base_cols, ext_cols, n)
     dev = base_bank.device
-    idx = lambda a: torch.from_numpy(a[live].astype(np.int64)).to(dev)  # noqa: E731
+    idx = lambda a: torch.from_numpy(a[live].astype(np.int32)).to(dev)  # noqa: E731
     bidx, eidx, midx = idx(bidx_np), idx(eidx_np), idx(midx_np)
     scalars = bb.to_device(scal_np[live].T, dev)  # (4, T)
 
     msgs = np.zeros((n_vars, deg + 1, 4), np.uint64)
     chals = np.zeros((n_vars, 4), np.uint64)
+    if round_hook is None and n_vars > 0 and fused_enabled():
+        st, pos, sq_pos, absorbed = transcript.export_state()
+        msgs_dev, end_state, merged = F.fused_rounds(
+            base_bank, ext_bank, bidx, eidx, midx, scalars, bb.to_device(st, dev),
+            deg=deg, k=n_vars, pos=pos, sq_pos=sq_pos, absorbed=absorbed)
+        # one copy to the host: the messages, the sponge's end state, the final evals
+        flat = bb.to_host(torch.cat([msgs_dev.view(-1), end_state,
+                                     T.final_evals(merged).reshape(-1)]))
+        m = msgs.size
+        msgs[:] = flat[:m].reshape(msgs.shape)
+        for rnd in range(n_vars):
+            transcript.append(msgs[rnd].ravel())
+            chals[rnd] = transcript.sample_ext()
+        if not np.array_equal(flat[m : m + 16], transcript.state):
+            raise RuntimeError(
+                f"sumcheck.prove ({n_vars} rounds, deg {deg}): the device duplex ended in "
+                "another sponge state than the host transcript's replay")
+        fin = flat[m + 16 :].reshape(4, -1).T  # (C, 4)
+        return _output(msgs, chals, fin, n_base, n_ext)
+
     merged = None
     for rnd in range(n_vars):
         if merged is None:
@@ -117,9 +153,11 @@ def prove(
         fin = torch.cat([ext4.from_base(base_bank[:n_base, 0]), ext_bank[:, :n_ext, 0]], dim=1)
     else:
         fin = T.final_evals(merged)  # (4, C)
-    fin = bb.to_host(fin).T  # (C, 4)
-    final_base = fin[:n_base]
-    final_ext = fin[n_base : n_base + n_ext]
-    point = chals[::-1].copy()  # LSB-first
-    return SumcheckOutput(SumcheckProof(msgs), point, final_base, final_ext)
+    return _output(msgs, chals, bb.to_host(fin).T, n_base, n_ext)
 
+
+def _output(msgs, chals, fin, n_base: int, n_ext: int) -> SumcheckOutput:
+    """The proof, the LSB-first point (the challenges reversed) and the final
+    evals, split from ``fin`` (C, 4) canonical."""
+    return SumcheckOutput(SumcheckProof(msgs), chals[::-1].copy(), fin[:n_base],
+                          fin[n_base : n_base + n_ext])

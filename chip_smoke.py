@@ -16,7 +16,14 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      each of their trees), bitwise, with the times of both and the card's
      bound for the same work; K2 over every tree from 2^1 to 2^11 leaves,
      across its top launch's threshold; then both on edge words at
-     (61, 2^16): all 0, all p - 1 and alternating 0 / p - 1;
+     (61, 2^16): all 0, all p - 1 and alternating 0 / p - 1. The sumcheck
+     kernels likewise, on seeded banks at the shapes of the main path's
+     largest sumchecks (``TOWER_*``, ``CLASS_MAINS``; phase 4 checks that
+     the GKR stages run them): K6a and K6b (mixed and ext mode) at the first
+     round of tower level 21 of the 2^22 group, with the fused tower's own
+     term table, and of the 2^19 and 2^18 class mains; K5/K7 from every
+     pos, sq_pos 0, 4 or 8, absorbed or not, and timed over a round's step;
+     with ptxas's registers and spills for each;
   3. the PCS slice end to end with the default BasefoldParams: commit, open
      and verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack,
      each with one random ext4 point per height class and the true MLE value
@@ -30,9 +37,14 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      card: records per chip, one tower per tower size, one batched main
      zerocheck per height class, every record, tower layer and sumcheck bank
      checked to lie on the card; the port's verifiers must accept, and reject
-     a proof over one changed output limb of the add chip; last, the digests
-     of the same stages at ``fibonacci_vm(100)`` must equal the reference's,
-     committed in ``ceno_tpu_torch/golden/gkr_fibonacci.json``;
+     a proof over one changed output limb of the add chip; the first rounds
+     of its sumchecks must include phase 2's shapes; the digests of the
+     same stages at ``fibonacci_vm(100)`` must equal the reference's,
+     committed in ``ceno_tpu_torch/golden/gkr_fibonacci.json``. All of it
+     runs the fused sumchecks and tower levels (the default); then, with
+     ``CENO_TPU_TORCH_FUSED=0`` and ``CENO_TPU_TORCH_FUSED_TOWER=0``, the
+     per-round sumchecks and per-level towers must give the same digests of
+     the full-size proof and pass the golden check;
   5. the main path end to end, as a user calls it: ``fibonacci_vm(174760)``
      on the native core (no fallback), ``public_values_from_vm``, ``keygen``
      at bench.py's ``ZKVMConfig(shl_x_bits=10)`` and ``BasefoldParams()``
@@ -41,7 +53,8 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      the file's), a first ``prove``, a second one with spans on and every
      witness commit, record, tower layer and sumcheck bank checked to lie on
      the card, then ``verify`` (the kernels' launch counts are reset just
-     before keygen and before the second prove, and read just after each);
+     before keygen and before the second prove, and read just after each:
+     K1, K2, K6a, K6b and K5/K7);
      both proofs must be the same bytes, and a changed public value,
      class-main eval and opening row must each be rejected. Last, the proof of ``fibonacci_vm(100)`` at
      ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and ``BasefoldParams()``
@@ -54,7 +67,8 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      span tree and its ``{"gkr": {...}}`` line; phase 5's span tree, its
      proof size beside the reference's, and its ``{"e2e": {...}}`` line; a
      ``{"kernels": [...]}`` line (the largest shapes; launches over phase 5's
-     timed prove), the card line and, last, ``{"ok": true, "device": {...}}``.
+     timed prove, each kernel's at least one), the card line and, last,
+     ``{"ok": true, "device": {...}}``.
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
 last line. Without a CUDA device it exits 2 and prints no result.
@@ -69,6 +83,7 @@ import faulthandler
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,7 +104,7 @@ from ceno_tpu_torch.hash.transcript import Transcript
 from ceno_tpu_torch.mle import ops
 from ceno_tpu_torch.pcs import basefold as bf
 from ceno_tpu_torch.pcs import jagged as jg
-from ceno_tpu_torch.sumcheck import terms
+from ceno_tpu_torch.sumcheck import fused, terms
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 from ceno_tpu_torch.utils import cuda_build, spans
 from ceno_tpu_torch.zkvm import e2e, layout, scheme, serialize, witgen
@@ -119,6 +134,22 @@ MULS_PER_PERM = 772 * 3  # Montgomery products per permutation x 3 multiplies
 # the first witness fold tree (4 rows for one point); K2 runs over their trees
 K1_SHAPES = [(61, 22), (13, 19), (4, 21)]
 SMALL_TREES = range(1, 12)  # log2 of the leaf counts of the small K2 trees
+
+# The main path's largest sumchecks, whose shapes phase 2 holds K6a and K6b
+# at (phase 4 checks that the 2^20-step fibonacci's GKR stages run them):
+# - the first round of tower level 21 of the 2^22 group (add and addi):
+#   TOWER_SPECS product and LogUp specs, the fused tower's padded term table;
+# - the first round of the 2^19 and 2^18 class mains: their base columns
+#   (witness, fixed and structural), sel_eq columns (one a chip), live terms,
+#   the most base and ext factors a term has and the degree.
+TOWER_LOG_N = 21
+TOWER_SPECS = (4, 2)  # (product, LogUp): add's and addi's two products and one LogUp each
+CLASS_MAINS = [  # the 2^19 class (addi), and the 2^18 class (add, beq, jal) of the largest degree
+    {"log_n": 19, "base": 23, "ext": 1, "terms": 83, "db": 2, "de": 1, "deg": 3},
+    {"log_n": 18, "base": 62, "ext": 3, "terms": 215, "db": 3, "de": 1, "deg": 4},
+]
+MULS_PER_PRODUCT = 3  # 32-bit multiplies of one Montgomery product
+EXT_PRODUCTS = 16     # base products of one ext4 product (the x^4 = 11 wrap adds none)
 
 
 def opening_trees(n_vars: int, params) -> list:
@@ -175,14 +206,51 @@ def wall_ms(fn) -> tuple:
     return out, (time.perf_counter() - t) * 1e3
 
 
-def bound(perms: int, nbytes: int) -> tuple:
-    """Least time for ``perms`` permutations moving ``nbytes``: the larger of
-    the bytes over the HBM rate and the integer multiplies over the multiply
-    rate. It counts multiplies only, not the additions and reductions, which
-    share the integer ALU pipe's own 64 per clock per SM."""
-    t_ops = perms * MULS_PER_PERM / PEAK_MULS_PER_S
+def bound_of(muls: int, nbytes: int) -> tuple:
+    """Least time for ``muls`` 32-bit integer multiplies moving ``nbytes``:
+    the larger of the bytes over the HBM rate and the multiplies over the
+    multiply rate, in ms, and which of the two it is."""
+    t_ops = muls / PEAK_MULS_PER_S
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(perms: int, nbytes: int) -> tuple:
+    """Least time for ``perms`` permutations moving ``nbytes``. It counts
+    multiplies only, not the additions and reductions, which share the
+    integer ALU pipe's own 64 per clock per SM."""
+    return bound_of(perms * MULS_PER_PERM, nbytes)
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for mod in (pm, terms, fused):
+        mod.reset_launches()
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count: K1, K2, K6a, K6b, K5/K7."""
+    return {**pm.LAUNCHES, **terms.LAUNCHES, **fused.LAUNCHES}
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """ptxas's registers and spills per kernel from an ``-Xptxas -v`` build
+    log, keyed by the kernel's name (with its degree for K6a's template)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)EE)?", m.group(1))
+            cur = m.group(1) if k is None else k.group(1)
+            if k is not None and k.group(2):
+                cur += f"<{k.group(2)}>"
+            out[cur] = {}
+        elif cur and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif cur and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -305,6 +373,161 @@ def edge_words(shape) -> None:
             fail(f"K2 differs from its plain version on {name} words, (8, 2^{shape[1]}) tree")
         log(f"edge words {name}: K1 at ({c}, 2^{shape[1]}) and K2 over (8, 2^{shape[1]}) "
             "equal their plain versions")
+
+
+# -- phase 2, continued: the sumcheck kernels K6a, K6b and K5/K7 ------------------
+
+def random_banks(rng, n_base: int, n_ext: int, n: int) -> tuple:
+    """Seeded (n_base + 1, n) base and (4, n_ext + 1, n) ext banks on DEVICE,
+    each with its ones sentinel last."""
+    base = bb.to_device(rng.integers(0, bb.P, size=(n_base + 1, n), dtype=np.uint64), DEVICE)
+    base[n_base] = bb.MONTY_ONE
+    ext = bb.to_device(rng.integers(0, bb.P, size=(4, n_ext + 1, n), dtype=np.uint64), DEVICE)
+    ext[:, n_ext] = 0
+    ext[0, n_ext] = bb.MONTY_ONE
+    return base, ext
+
+
+def main_path_sumchecks(rng) -> list:
+    """(what, base bank, ext bank, bidx, eidx, scalars, deg) at the shapes of
+    TOWER_* and CLASS_MAINS. The tower level has the fused tower's own
+    tables (``tower._level_static``) and scalars gathered from seeded alpha
+    powers with the zero slot, as the card builds them; a class main has
+    seeded tables of its shape (the terms' real indices come from the chips'
+    constraints, which this phase does not build)."""
+    out = []
+    n_prod, n_logup = TOWER_SPECS
+    bidx, eidx, _, alpha_idx, deg = tower._level_static(n_prod, n_logup)
+    n_claims, s_e = n_prod + 2 * n_logup, 2 * n_prod + 4 * n_logup
+    pows = torch.zeros((4, n_claims + 1), dtype=bb.DTYPE, device=DEVICE)
+    pows[:, :n_claims] = bb.to_device(rng.integers(0, bb.P, size=(4, n_claims), dtype=np.uint64),
+                                      DEVICE)
+    base, ext = random_banks(rng, 0, s_e + 1, 1 << TOWER_LOG_N)
+    dev_idx = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)  # noqa: E731
+    out.append((f"tower level {TOWER_LOG_N} of the 2^{TOWER_LOG_N + 1} group", base, ext,
+                dev_idx(bidx), dev_idx(eidx), pows[:, torch.from_numpy(alpha_idx).to(DEVICE)], deg))
+    for cm in CLASS_MAINS:
+        base, ext = random_banks(rng, cm["base"], cm["ext"], 1 << cm["log_n"])
+        t = cm["terms"]
+        out.append((f"2^{cm['log_n']} class main, first round", base, ext,
+                    dev_idx(rng.integers(0, cm["base"] + 1, size=(t, cm["db"]))),
+                    dev_idx(rng.integers(0, cm["ext"] + 1, size=(t, cm["de"]))),
+                    bb.to_device(rng.integers(1, bb.P, size=(4, t), dtype=np.uint64), DEVICE),
+                    cm["deg"]))
+    return out
+
+
+def round_evals_bound(base, ext, bidx, eidx, scalars, deg: int) -> tuple:
+    """K6a's least time on these inputs: each word of both banks read once;
+    per live term (nonzero scalar), node and element of the half-cube, one
+    product for each factor past the first (base 1, ext EXT_PRODUCTS, a base
+    product into an ext one 4; the sentinel factors need none), and one ext
+    product per live term and node for its scalar."""
+    cb, ce, half = base.shape[0] - 1, ext.shape[1] - 1, ext.shape[2] // 2
+    live = scalars.ne(0).any(dim=0).cpu().numpy()
+    nb = (bidx.cpu().numpy() != cb).sum(axis=1)[live]
+    ne = (eidx.cpu().numpy() != ce).sum(axis=1)[live]
+    per_elem = (np.maximum(nb - 1, 0) + EXT_PRODUCTS * np.maximum(ne - 1, 0)
+                + 4 * ((nb > 0) & (ne > 0)))
+    products = (deg + 1) * (half * int(per_elem.sum()) + EXT_PRODUCTS * int(live.sum()))
+    nbytes = 4 * (ext.numel() + (base.numel() if bidx.shape[1] else 0))
+    return bound_of(products * MULS_PER_PRODUCT, nbytes)
+
+
+def fold_bound(cb: int, ce1: int, n: int) -> tuple:
+    """K6b's least time: read cb base and ce1 ext columns, write the
+    (4, cb + ce1, n / 2) bank; 4 products a base column element, EXT_PRODUCTS
+    an ext one."""
+    half = n // 2
+    nbytes = 4 * (cb * n + 4 * ce1 * n) + 16 * (cb + ce1) * half
+    return bound_of(half * (4 * cb + EXT_PRODUCTS * ce1) * MULS_PER_PRODUCT, nbytes)
+
+
+def sumcheck_kernels_vs_plain(rng, ptxas: dict) -> tuple:
+    """K6a, K6b (mixed and ext mode) and K5/K7 against their plain versions,
+    bitwise, at the main path's largest shapes, with the times of both and
+    the bound. Returns (the ``kernels`` entries, one row per shape)."""
+    rows, results = [], {}
+    regs = lambda k: ptxas.get(k, "not built in this process")  # noqa: E731
+    for what, base, ext, bidx, eidx, scalars, deg in main_path_sumchecks(rng):
+        n, cb, ce1 = ext.shape[2], base.shape[0] - 1, ext.shape[1]
+        got = terms.round_evals(base, ext, bidx, eidx, scalars, deg=deg)
+        ms = cuda_ms(lambda: terms.round_evals(base, ext, bidx, eidx, scalars, deg=deg,
+                                               check_indices=False), reps=5)
+        want, plain_ms = wall_ms(lambda: terms.round_evals_plain(base, ext, bidx, eidx, scalars,
+                                                                 deg=deg))
+        err = max_abs_err(got, want)
+        b_ms, b_by = round_evals_bound(base, ext, bidx, eidx, scalars, deg)
+        rows.append(dict(name="round_evals", shape=f"{what}: base {tuple(base.shape)}, ext "
+                         f"{tuple(ext.shape)}, T {bidx.shape[0]}, DB {bidx.shape[1]}, "
+                         f"DE {eidx.shape[1]}, deg {deg}", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         ptxas=regs(f"round_evals_kernel<{deg}>")))
+        results.setdefault("round_evals", rows[-1])
+        log(f"K6a {rows[-1]['shape']}: max_abs_err {err}, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), {rows[-1]['ptxas']}")
+        if err:
+            fail(f"K6a differs from its plain version on the {what}")
+        r = bb.to_device(rng.integers(0, bb.P, size=4, dtype=np.uint64), DEVICE)
+        for mode, fold, plain, args, cols in (
+                ("mixed", terms.fold_banks, terms.fold_banks_plain, (base, ext, r), (cb, ce1)),
+                ("ext", terms.fold_ext_bank, terms.fold_ext_bank_plain, (ext, r), (0, ce1))):
+            got = fold(*args)
+            ms = cuda_ms(lambda: fold(*args), reps=5)
+            want, plain_ms = wall_ms(lambda: plain(*args))
+            err = max_abs_err(got, want)
+            b_ms, b_by = fold_bound(*cols, n)
+            rows.append(dict(name="fold", shape=f"{what}, {mode} mode: {cols[0]} base and "
+                             f"{cols[1]} ext columns of 2^{n.bit_length() - 1}", max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             ptxas=regs("fold_kernel")))
+            if what.startswith("tower") and mode == "ext":
+                results.setdefault("fold", rows[-1])
+            log(f"K6b {rows[-1]['shape']}: max_abs_err {err}, kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+            if err:
+                fail(f"K6b ({mode} mode) differs from its plain version on the {what}")
+            del got, want
+        del base, ext
+    # K5/K7: one step from every pos, absorbed or not, at each sq_pos a round
+    # can meet; a round's step (absorb a deg-3 message, 16 words, sample)
+    for pos in range(9):
+        for sq_pos in (0, 4, 8):
+            for absorbed in (False, True):
+                st = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
+                words = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
+                outs = [[st.clone(), torch.zeros(4, dtype=bb.DTYPE, device=DEVICE),
+                         torch.zeros((4, 6), dtype=bb.DTYPE, device=DEVICE)] for _ in range(2)]
+                fused.duplex(outs[0][0], words, outs[0][1], outs[0][2][:, :5], pos=pos,
+                             sq_pos=sq_pos, absorbed=absorbed)
+                fused.duplex_plain(outs[1][0], words, outs[1][1], outs[1][2][:, :5], pos, sq_pos,
+                                   absorbed)
+                err = max(max_abs_err(a, b) for a, b in zip(*outs))
+                if err:
+                    fail(f"K5/K7 differs from its plain version from pos {pos}, sq_pos {sq_pos}, "
+                         f"absorbed {absorbed}")
+    st = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
+    words = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
+    out = torch.zeros(4, dtype=bb.DTYPE, device=DEVICE)
+    ms = cuda_ms(lambda: fused.duplex(st, words, out, pos=0, sq_pos=4, absorbed=False), reps=20)
+    _, plain_ms = wall_ms(lambda: fused.duplex_plain(st, words, out, None, 0, 4, False))
+    perms = 2  # 16 words from pos 0: one permutation when pos reaches 8, one before the sample
+    b_ms, b_by = bound(perms, 4 * (2 * 16 + 16 + 4))  # state in and out, the words, the challenge
+    rows.append(dict(name="duplex", shape="a round's step: absorb 16 words from pos 0, sample "
+                     f"one ext ({perms} permutations)", max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, ptxas=regs("duplex_kernel")))
+    results["duplex"] = rows[-1]
+    log(f"K5/K7 from every pos (0-8), sq_pos 0/4/8, absorbed or not, equals its plain version; "
+        f"{rows[-1]['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}), {rows[-1]['ptxas']}")
+    lines = {"round_evals": "ceno_tpu/sumcheck/terms.py:108",
+             "fold": "ceno_tpu/sumcheck/terms.py:138", "duplex": "ceno_tpu/sumcheck/fused.py:30"}
+    kernels = [dict(name=name, route="cuda", source="ceno_tpu_torch/csrc/sumcheck.cu",
+                    replaces=line, **{k: v for k, v in results[name].items()
+                                      if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by")}, library_ms=None)
+               for name, line in lines.items()]
+    return kernels, rows
 
 
 def mle_values(arr: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -560,7 +783,7 @@ def run_gkr(n: int) -> dict:
     pv = public_values(vm)
     t0 = time.time()
     spans.enable()
-    with device_audit() as seen:
+    with device_audit() as seen, sumcheck_calls() as calls:
         run = gkr_prove(assigned, pv)
         sync()
     seconds["prove"] = time.time() - t0
@@ -597,7 +820,99 @@ def run_gkr(n: int) -> dict:
     return {"program": f"fibonacci_vm({n})", "steps": sum(a.num_instances for a in assigned),
             "device": DEVICE, "seconds": seconds, "stage_seconds": run["seconds"],
             "chips": chips, "tower_groups": groups, "classes": classes,
-            "checked_on_device": checked, "span_report": span_report}
+            "checked_on_device": checked, "sumcheck_shapes": first_rounds(calls),
+            "digests": gkr_digests(run), "span_report": span_report}
+
+
+@contextlib.contextmanager
+def sumcheck_calls():
+    """Record the first round of every sumcheck made inside the block (the
+    K6a calls with a base bank): its banks' shapes, term table shapes,
+    degree and scalars."""
+    calls, original = [], terms.round_evals
+
+    def inner(base_bank, ext_bank, bidx, eidx, scalars, **kwargs):
+        if base_bank is not None:
+            calls.append((tuple(base_bank.shape), tuple(ext_bank.shape), tuple(bidx.shape),
+                          tuple(eidx.shape), kwargs["deg"], scalars))
+        return original(base_bank, ext_bank, bidx, eidx, scalars, **kwargs)
+    terms.round_evals = inner
+    try:
+        yield calls
+    finally:
+        terms.round_evals = original
+
+
+def first_rounds(calls) -> list:
+    """The distinct first-round shapes of :func:`sumcheck_calls`, with the
+    count of live terms (nonzero scalars), as JSON."""
+    out = []
+    for base, ext, b, e, deg, scalars in calls:
+        sig = {"base": list(base), "ext": list(ext), "terms": b[0], "db": b[1], "de": e[1],
+               "deg": deg, "live": int(scalars.ne(0).any(dim=0).sum())}
+        if sig not in out:
+            out.append(sig)
+    return out
+
+
+def check_main_path_shapes(shapes: list) -> None:
+    """Phase 2's sumcheck shapes (TOWER_*, CLASS_MAINS) are among the first
+    rounds the GKR stages ran."""
+    n_prod, n_logup = TOWER_SPECS
+    n, s_e = 1 << TOWER_LOG_N, 2 * n_prod + 4 * n_logup
+    want = [{"base": [1, n], "ext": [4, s_e + 2, n],
+             "terms": tower._level_static(n_prod, n_logup)[0].shape[0], "db": 0, "de": 3,
+             "deg": 3, "live": n_prod + 3 * n_logup}]
+    for cm in CLASS_MAINS:
+        n = 1 << cm["log_n"]
+        want.append({"base": [cm["base"] + 1, n], "ext": [4, cm["ext"] + 1, n],
+                     "terms": cm["terms"], "db": cm["db"], "de": cm["de"], "deg": cm["deg"],
+                     "live": cm["terms"]})
+    for w in want:
+        if w not in shapes:
+            fail(f"phase 2's sumcheck shape {w} is not among the GKR stages' first rounds {shapes}")
+    log(f"GKR: phase 2's {len(want)} sumcheck shapes are among the {len(shapes)} distinct first "
+        "rounds the GKR stages ran")
+
+
+SWITCHES = ("CENO_TPU_TORCH_FUSED", "CENO_TPU_TORCH_FUSED_TOWER")
+
+
+@contextlib.contextmanager
+def per_round_paths():
+    """The per-round sumchecks and the per-level towers (both switches "0")
+    for the block's length."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update(dict.fromkeys(SWITCHES, "0"))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def gkr_per_round_check(n: int, fused_digests: dict) -> dict:
+    """Phase 4 once more on the per-round paths: the proof of fibonacci_vm(n)
+    must have the fused run's digests, and the golden check must pass.
+    Returns its seconds."""
+    with per_round_paths():
+        vm, assigned, _ = emulate_and_assign(n)
+        t0 = time.time()
+        got = gkr_digests(gkr_prove(assigned, public_values(vm)))
+        sync()
+        seconds = {"prove": time.time() - t0}
+        t0 = time.time()
+        gkr_golden_check()
+        seconds["golden_check"] = time.time() - t0
+    if got != fused_digests:
+        fail(f"GKR at fibonacci_vm({n}): the per-round paths' digests {got} differ from the "
+             f"fused paths' {fused_digests}")
+    log(f"GKR: the per-round sumchecks and per-level towers give the fused paths' digests at "
+        f"fibonacci_vm({n}) (prove {seconds['prove']:.2f}s) and the golden ones")
+    return seconds
 
 
 def gkr_golden_check(n: int = GOLDEN_ITERS) -> dict:
@@ -759,13 +1074,13 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
             or vm.regs[10] != programs.fib_expected(n)):
         fail(f"fibonacci_vm({n}) ran {trace.n} steps (halted {vm.halted}), a0 = {vm.regs[10]}")
     pv = e2e.public_values_from_vm(vm, cfg)
-    pm.reset_launches()
+    reset_launches()
     t0 = time.time()
     pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
     sync()
     seconds["keygen"] = time.time() - t0
     (fixed,) = pk.fixed_committed.values()
-    counted = {"keygen": (dict(pm.LAUNCHES), [fixed.n_vars + params.blowup_log])}
+    counted = {"keygen": (launches(), [fixed.n_vars + params.blowup_log])}
     log(f"e2e: fibonacci_vm({n}), {trace.n} steps emulated in {seconds['emulate']:.2f}s; "
         f"keygen ({len(pk.metas)} chips) in {seconds['keygen']:.2f}s")
     if key_check:
@@ -778,12 +1093,12 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
         torch.cuda.reset_peak_memory_stats()
     spans.enable()
     with prove_audit() as seen:
-        pm.reset_launches()
+        reset_launches()
         t0 = time.time()
         proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
         sync()
         seconds["prove"] = time.time() - t0
-        counted["prove"] = (dict(pm.LAUNCHES), prove_trees(pk, proof))
+        counted["prove"] = (launches(), prove_trees(pk, proof))
     tree, span_report = spans.tree(), spans.report(min_seconds=0.01)
     spans.disable()
     checked = on_device(seen)
@@ -868,25 +1183,30 @@ def main() -> int:
         t = time.time()
         cuda_build.build_all()
         log(f"kernels built in {time.time() - t:.2f}s")
+        ptxas = {}
         for name, out in cuda_build.build_logs.items():
-            for line in out.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+            for kernel, info in ptxas_by_kernel(out).items():
+                log(f"  {name}: {kernel}: {info}")
+                ptxas[kernel] = info
     with phase("1 golden Merkle check"):
         golden_check()
     with phase("2 kernels against plain versions"):
         kernels, shape_rows = kernels_vs_plain(np.random.default_rng(SEED))
+        torch.cuda.empty_cache()
+        sc_kernels, sc_rows = sumcheck_kernels_vs_plain(np.random.default_rng(SEED + 2), ptxas)
+        kernels += sc_kernels
+        shape_rows += sc_rows
     torch.cuda.empty_cache()
 
     with phase("3 PCS slice end to end"):
         rng = np.random.default_rng(SEED + 1)
         spans.enable()
-        pm.reset_launches()
+        reset_launches()
         for name, classes in (("witness", WITNESS_CLASSES), ("fixed", FIXED_CLASSES)):
             with spans.span(name):
                 run_slice(name, classes, rng, bf.BasefoldParams())
         torch.cuda.synchronize()
-        launches = dict(pm.LAUNCHES)
+        pcs_launches = launches()
         pcs_report = spans.report(min_seconds=0.001)
         spans.disable()
     torch.cuda.empty_cache()
@@ -895,9 +1215,11 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         gkr = run_gkr(GKR_ITERS)
         gkr["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        check_main_path_shapes(gkr["sumcheck_shapes"])
         t = time.time()
         gkr["golden_digests"] = gkr_golden_check()
         gkr["seconds"]["golden_check"] = time.time() - t
+        gkr["seconds"]["per_round"] = gkr_per_round_check(GKR_ITERS, gkr["digests"])
         gkr_report = gkr.pop("span_report")
     torch.cuda.empty_cache()
 
@@ -910,14 +1232,14 @@ def main() -> int:
 
     with phase("6 report"):
         print(pcs_report, flush=True)
-        for path, (counted, trees) in (("PCS slice (phase 3)", (launches, MAIN_PATH_TREES)),
+        for path, (counted, trees) in (("PCS slice (phase 3)", (pcs_launches, MAIN_PATH_TREES)),
                                        ("e2e keygen (phase 5)", e2e_counted["keygen"]),
                                        ("e2e prove (phase 5)", e2e_counted["prove"])):
             expected = {"leaf_sponge": len(trees),
                         "compress_level": sum(len(pm.merkle_plan(1 << n)) for n in trees)}
             log(f"launches over the {path}: {counted}; its {len(trees)} trees' launch plans "
                 f"give {expected}")
-            if counted != expected:
+            if {k: counted[k] for k in expected} != expected:
                 fail(f"launches over the {path}: {counted}, the launch plans give {expected}")
         for k in kernels:
             k["launches"] = e2e_counted["prove"][0][k["name"]]

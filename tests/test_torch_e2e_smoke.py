@@ -46,7 +46,7 @@ def test_e2e_phase_on_cpu(monkeypatch):
         names = [nm for members in line[grouping].values() for nm in members]
         assert sorted(names) == sorted(line["active_chips"])
     # CPU tensors take the kernels' plain versions: nothing is launched
-    none = {"leaf_sponge": 0, "compress_level": 0}
+    none = {"leaf_sponge": 0, "compress_level": 0, "round_evals": 0, "fold": 0, "duplex": 0}
     assert line["launches"] == {"keygen": none, "prove": none}
     assert counted["keygen"] == (none, [17])
     launches, trees = counted["prove"]

@@ -47,9 +47,13 @@ def test_tables_are_the_reference_tables():
 
 
 def test_cuda_source_tables_match():
-    """The __constant__ tables and field constants in the CUDA source are the
-    Montgomery forms of the protocol tables."""
-    src = open(os.path.join(ROOT, "ceno_tpu_torch", "csrc", "poseidon2_merkle.cu")).read()
+    """The __constant__ tables and field constants in the CUDA sources (the
+    headers csrc/babybear.cuh and csrc/poseidon2.cuh, which the kernel
+    sources include) are the Montgomery forms of the protocol tables."""
+    csrc = os.path.join(ROOT, "ceno_tpu_torch", "csrc")
+    src = "".join(open(os.path.join(csrc, f)).read()
+                  for f in ("babybear.cuh", "poseidon2.cuh", "poseidon2_merkle.cu"))
+    assert '#include "babybear.cuh"' in src and '#include "poseidon2.cuh"' in src
 
     def table(name):
         body = re.search(name + r"\[[^\]]*\](?:\[[^\]]*\])?\s*=\s*\{(.*?)\};", src, re.S).group(1)

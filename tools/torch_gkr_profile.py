@@ -18,18 +18,26 @@ stage and every operation family wrapped in a ``record_function`` range:
               openings (``jagged.open_jagged``);
   operations: record_eval (the record builder, K9), tower_layers
               (``product_layers`` / ``logup_layers``, K8's trees),
-              round_evals and folds (the sumcheck term kernels, K6), banks
+              round_evals and folds (the sumcheck term kernels K6a and
+              K6b), duplex (the on-device transcript, K5/K7), banks
               (``make_banks``), eq (``build_eq``), to_host (device -> host
-              copies, where every sumcheck round waits for the card),
-              encode (the NTT, K4), merkle (``hash_and_tree`` and
-              ``fold_codewords_and_tree``: K1, K2 and the fold before them).
+              copies, where the per-round paths wait for the card and the
+              fused ones fetch their results), encode (the NTT, K4), merkle
+              (``hash_and_tree`` and ``fold_codewords_and_tree``: K1, K2 and
+              the fold before them).
 
 It prints one JSON line: the profiled prove's wall seconds, the device's
 busy seconds (the union of its kernel and copy intervals) and idle share,
-each range's host and device seconds, K1's and K2's calls and device
-seconds twice (from the trace by kernel name, and from CUDA events around
-each call of their wrappers), and the kernels with the most device time (the device events exclude the annotation ranges the profiler mirrors
-on the device's timeline). The card's name and power limit come first.
+each range's host and device seconds, the hand-written kernels' (K1, K2,
+K6a, K6b, K5/K7) calls and device seconds twice (from the trace by kernel
+name, and from CUDA events around each call of their wrappers), and the
+kernels with the most device time (the device events exclude the annotation
+ranges the profiler mirrors on the device's timeline). The profiler gives a
+range the device time of the kernels torch launches inside it, not of those
+launched through ctypes: each operation range whose wrappers launch a
+hand-written kernel also gets ``kernel_device_s``, that kernel's device
+seconds read by name from the trace. The card's name and power limit come
+first.
 Without a CUDA device it exits 2.
 """
 
@@ -56,7 +64,7 @@ from ceno_tpu_torch.gkr import tower  # noqa: E402
 from ceno_tpu_torch.hash import poseidon2_merkle as pm  # noqa: E402
 from ceno_tpu_torch.mle import ops  # noqa: E402
 from ceno_tpu_torch.pcs import basefold, jagged, ntt  # noqa: E402
-from ceno_tpu_torch.sumcheck import terms  # noqa: E402
+from ceno_tpu_torch.sumcheck import fused, terms  # noqa: E402
 from ceno_tpu_torch.zkvm import e2e, scheme  # noqa: E402
 from ceno_tpu_torch.zkvm.tables import ZKVMConfig  # noqa: E402
 
@@ -68,27 +76,33 @@ OPS = {"record_eval": [(gkr_chip, "build_records")],
        "tower_layers": [(tower, "product_layers"), (tower, "logup_layers")],
        "round_evals": [(terms, "round_evals")],
        "folds": [(terms, "fold_banks"), (terms, "fold_ext_bank")],
+       "duplex": [(fused, "duplex")],
        "banks": [(terms, "make_banks")],
        "eq": [(ops, "build_eq")],
        "to_host": [(bb, "to_host")],
        "encode": [(ntt, "encode")],
        "merkle": [(basefold, "hash_and_tree"), (basefold, "fold_codewords_and_tree")]}
 
-# the hand-written kernels: the part of their names in the trace, and the
-# wrapper (module attribute) that launches them
-PORTED_KERNELS = {"K1": ("leaf_sponge_kernel", "leaf_sponge"),
-                  "K2": ("merkle_levels", "merkle_levels")}
+# the hand-written kernels: the part of their names in the trace, the
+# wrapper (module attribute) that launches them, and the operation range
+# that wraps it (K6b's wrappers fold_banks and fold_ext_bank both launch
+# through terms._fold)
+PORTED_KERNELS = {"K1": ("leaf_sponge_kernel", pm, "leaf_sponge", "op:merkle"),
+                  "K2": ("merkle_levels", pm, "merkle_levels", "op:merkle"),
+                  "K6a": ("round_evals", terms, "round_evals", "op:round_evals"),
+                  "K6b": ("fold_kernel", terms, "_fold", "op:folds"),
+                  "K5/K7": ("duplex_kernel", fused, "duplex", "op:duplex")}
 
 
 @contextlib.contextmanager
 def wrapper_events(times: dict):
-    """Time each call of the K1 and K2 wrappers with CUDA events on the
-    current stream, for the block's length; ``times[label]`` collects the
-    (start, end) pairs, read after the block's last synchronize."""
+    """Time each call of the hand-written kernels' wrappers with CUDA events
+    on the current stream, for the block's length; ``times[label]`` collects
+    the (start, end) pairs, read after the block's last synchronize."""
     saved = []
-    for label, (_, attr) in PORTED_KERNELS.items():
-        fn = getattr(pm, attr)
-        saved.append((attr, fn))
+    for label, (_, mod, attr, _) in PORTED_KERNELS.items():
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
         times[label] = []
 
         def inner(*args, _fn=fn, _label=label, **kwargs):
@@ -98,12 +112,12 @@ def wrapper_events(times: dict):
             end.record()
             times[_label].append((start, end))
             return out
-        setattr(pm, attr, inner)
+        setattr(mod, attr, inner)
     try:
         yield
     finally:
-        for attr, fn in saved:
-            setattr(pm, attr, fn)
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
 
 
 @contextlib.contextmanager
@@ -180,7 +194,11 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
     busy = busy_seconds(events)
     ported = {label: {"trace_calls": sum(k["calls"] for n, k in kernels.items() if part in n),
                       "trace_device_s": sum(k["device_s"] for n, k in kernels.items() if part in n)}
-              for label, (part, _) in PORTED_KERNELS.items()}
+              for label, (part, *_) in PORTED_KERNELS.items()}
+    for label, (*_, op) in PORTED_KERNELS.items():
+        if op in ranges_:
+            r = ranges_[op]
+            r["kernel_device_s"] = r.get("kernel_device_s", 0.0) + ported[label]["trace_device_s"]
     return {
         "wall_s": wall_s, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall_s if wall_s else None,
