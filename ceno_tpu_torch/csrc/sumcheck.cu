@@ -69,7 +69,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 1024;
-constexpr int MAX_DEG = 7;       // terms of at most 7 factors (the main path's: 4)
+constexpr int MAX_DEG = 8;       // terms of at most 8 factors (div's and the shard-RAM
+                                 // chips' class mains; the single-shard main path's: 4)
 constexpr int MAX_FACTORS = 16;  // DB + DE
 
 __device__ __forceinline__ Ext ext_load(const uint32_t* __restrict__ bank, int64_t comp,
@@ -299,7 +300,8 @@ extern "C" int sc_round_evals(const void* base, const void* ext, const void* bid
     case 4: launch_round_evals<4>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
     case 5: launch_round_evals<5>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
     case 6: launch_round_evals<6>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    default: launch_round_evals<7>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
+    case 7: launch_round_evals<7>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
+    default: launch_round_evals<8>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
 """ctypes binding for the native C++ rv32im emulator.
 
-Counterpart of ``ceno_tpu/emulator/native.py`` up to the trace runners: the
-AOT preflight backend (``aotgen``) is not ported yet. Builds
-``native/emulator.cpp`` on first use (``c++ -O2 -shared -fPIC``) into the
-git-ignored ``ceno_tpu_torch/_build/``, keyed by a hash of the source, runs
+Counterpart of ``ceno_tpu/emulator/native.py``, with its AOT preflight
+backend (:func:`run_preflight` over ``aotgen``'s per-program libraries, built
+into ``ceno_tpu_torch/_build/aot/``). Builds ``native/emulator.cpp`` on
+first use (``c++ -O2 -shared -fPIC``) into the git-ignored
+``ceno_tpu_torch/_build/``, keyed by a hash of the source, runs
 the guest at native speed and reconstructs the same VMState + StepRecord
 structures (or TraceView columns) the Python interpreter produces — witgen is
 agnostic to which backend ran. :func:`run_vm` and :func:`run_trace` fall back
@@ -424,3 +425,134 @@ def _sync_vm_state(lib, h, vm: VMState) -> None:
     digest = np.zeros(8, np.uint32)
     if lib.emu_pubio(h, digest):
         vm.pubio_digest = [int(x) for x in digest]
+
+
+# ---------------------------------------------------------------------------
+# AOT preflight backend (emulator/aotgen.py codegen; ceno_emul/src/aot.rs
+# role): guest basic blocks compiled to native code, executed WITHOUT step
+# rows to produce the shard plan (boundaries), per-kind step counts and the
+# final machine state at interpreter-equivalent semantics.
+# ---------------------------------------------------------------------------
+
+_AOT_LIBS: dict = {}
+
+
+def _aot_lib(vm: VMState):
+    from . import aotgen
+
+    digest = hashlib.sha256(repr(sorted(vm.program.items())).encode()).hexdigest()
+    lib = _AOT_LIBS.get(digest)
+    if lib is not None:
+        return lib
+    so = aotgen.build(vm.program, vm.entry)
+    if so is None:
+        return None
+    lib = ctypes.CDLL(str(so))
+    lib.emu_new.restype = ctypes.c_void_p
+    lib.emu_new.argtypes = [ctypes.c_uint32, ctypes.c_uint32]
+    lib.emu_free.argtypes = [ctypes.c_void_p]
+    lib.emu_load_program.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint32,
+        np.ctypeslib.ndpointer(np.uint32), ctypes.c_int64,
+    ]
+    lib.emu_init_memory.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint32,
+        np.ctypeslib.ndpointer(np.uint32), ctypes.c_int64,
+    ]
+    lib.emu_state.argtypes = [ctypes.c_void_p] + [
+        ctypes.POINTER(ctypes.c_uint32)
+    ] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint32)]
+    lib.emu_regs.argtypes = [
+        ctypes.c_void_p, np.ctypeslib.ndpointer(np.uint32),
+        np.ctypeslib.ndpointer(np.uint32),
+    ]
+    lib.aot_preflight.restype = ctypes.c_int64
+    lib.aot_preflight.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int64),                 # cost
+        np.ctypeslib.ndpointer(np.uint32),                # sys codes
+        np.ctypeslib.ndpointer(np.int32), ctypes.c_int64,  # sys kinds, n
+        ctypes.c_int64, ctypes.c_int64,                   # max_cells, max_sps
+        np.ctypeslib.ndpointer(np.int64), ctypes.c_int64,  # bounds, cap
+        ctypes.POINTER(ctypes.c_int64),                   # n_bounds_out
+        np.ctypeslib.ndpointer(np.int64),                 # kind counts
+    ]
+    _AOT_LIBS[digest] = lib
+    return lib
+
+
+def aot_available(vm: VMState) -> bool:
+    try:
+        return _aot_lib(vm) is not None
+    except Exception:
+        return False
+
+
+def run_preflight(vm: VMState, cost_by_kind: dict | None = None,
+                  max_cells_per_shard: int | None = None,
+                  max_steps_per_shard: int | None = None,
+                  max_steps: int = 1 << 24):
+    """Execute the guest through the compiled AOT blocks. Returns
+    (bounds, kind_counts (len KINDS), n_steps, state dict). ``bounds``
+    replicates zkvm/shard.py::plan_boundaries exactly (leading 0 and
+    trailing n included)."""
+    lib = _aot_lib(vm)
+    if lib is None:
+        raise RuntimeError("no C++ toolchain for the AOT preflight")
+    from .state import SYSCALL_KIND_NAMES
+
+    cost = np.full(len(KINDS), 32, np.int64)
+    for k, c in (cost_by_kind or {}).items():
+        cost[int(k)] = int(c)
+    codes = np.array(sorted(SYSCALL_KIND_NAMES), np.uint32)
+    skinds = np.array(
+        [KINDS.index(SYSCALL_KIND_NAMES[c]) for c in sorted(SYSCALL_KIND_NAMES)],
+        np.int32,
+    )
+    h = lib.emu_new(vm.entry, vm.regs[2])
+    try:
+        prog_items = sorted(vm.program.items())
+        base_w = prog_items[0][0]
+        words = np.zeros(prog_items[-1][0] - base_w + 1, np.uint32)
+        for w, word in prog_items:
+            words[w - base_w] = word
+        lib.emu_load_program(h, base_w << 2, words, len(words))
+        for waddr, val in sorted(vm.mem_init.items()):
+            lib.emu_init_memory(h, waddr << 2, np.array([val], np.uint32), 1)
+        cap = 1 << 20
+        bounds = np.zeros(cap, np.int64)
+        counts = np.zeros(len(KINDS), np.int64)
+        nb = ctypes.c_int64(0)
+        got = lib.aot_preflight(
+            h, max_steps, cost, codes, skinds, len(codes),
+            -1 if max_cells_per_shard is None else int(max_cells_per_shard),
+            -1 if max_steps_per_shard is None else int(max_steps_per_shard),
+            bounds, cap, ctypes.byref(nb), counts,
+        )
+        if got == -2:
+            raise UnsupportedSyscall("preflight: unsupported syscall")
+        if got < 0:
+            raise RuntimeError(f"aot preflight failed (code {got})")
+        if nb.value > cap:
+            # the C side keeps counting past the buffer; truncated
+            # boundaries would be silently WRONG — refuse instead
+            # (callers fall back to the trace planner)
+            raise RuntimeError(
+                f"preflight produced {nb.value} boundaries (> buffer {cap})"
+            )
+        pc = ctypes.c_uint32(); cyc = ctypes.c_uint32()
+        halted = ctypes.c_int(); exit_code = ctypes.c_uint32()
+        lib.emu_state(h, ctypes.byref(pc), ctypes.byref(cyc),
+                      ctypes.byref(halted), ctypes.byref(exit_code))
+        regs = np.zeros(32, np.uint32)
+        reg_ts = np.zeros(32, np.uint32)
+        lib.emu_regs(h, regs, reg_ts)
+        state = {
+            "pc": int(pc.value), "cycle": int(cyc.value),
+            "halted": bool(halted.value), "exit_code": int(exit_code.value),
+            "regs": regs,
+        }
+        all_bounds = [0] + [int(b) for b in bounds[: nb.value]] + [int(got)]
+        return all_bounds, counts, int(got), state
+    finally:
+        lib.emu_free(h)

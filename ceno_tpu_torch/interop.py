@@ -17,7 +17,13 @@ digest.
 A whole zkVM proof goes across as its ``proof_to_bytes`` bytes: the format
 is the same in both packages, so the port's ``zkvm/serialize.proof_from_bytes``
 reads the reference's proof and ``proof_to_bytes`` writes it back byte for
-byte. The key does not go across: keygen is deterministic, so each side
+byte. A sharded proof goes across as one such blob per shard
+(:func:`sharded_proof_to_bytes`, :func:`sharded_proof_from_bytes`). The
+continuations' plan goes as plain data: a shard's token lists
+(:func:`tokens_to_dict`) and its context without the planned witness
+(:func:`shard_context_to_dict`); an EC-sum proof as ``asdict``. Each
+``*_to_*`` here reads attributes only, so it takes either package's
+object. The key does not go across: keygen is deterministic, so each side
 derives it from (program, config, params), and :func:`key_summary` gives what
 two keys are compared by.
 """
@@ -31,11 +37,15 @@ import numpy as np
 from . import DEFAULT_DEVICE
 from .fields import babybear as bb
 from .gkr.chip import ChipOpening, ClassMainProof, chip_digest
+from .gkr.eccquark import EccQuarkProof
 from .gkr.tower import TowerProof
 from .pcs.basefold import BasefoldParams, Committed, OpeningProof, QueryProof
 from .pcs.jagged import JaggedClaim, JaggedLayout, JaggedOpening, SliceRef
 from .pcs.merkle import MerkleTree
+from .zkvm import serialize
 from .zkvm.chips.opcodes import TraceView
+from .zkvm.chips.shard_ram import Tokens
+from .zkvm.shard import ShardContext, ShardedProof
 
 
 def _u64(x) -> np.ndarray:
@@ -126,6 +136,50 @@ def chip_opening_from_dict(d: dict) -> ChipOpening:
 
 def trace_view_from_dict(d: dict) -> TraceView:
     return TraceView(**{k: (int(v) if k == "n" else np.asarray(v, np.int64)) for k, v in d.items()})
+
+
+# -- continuations: EccQuarkProof, Tokens, ShardContext, ShardedProof ---------
+
+def ecc_proof_from_dict(d: dict) -> EccQuarkProof:
+    return EccQuarkProof(int(d["num_instances"]), int(d["n_vars"]), _u64(d["round_msgs"]),
+                         _u64(d["col_evals"]), _u64(d["final_sum"]))
+
+
+_TOKEN_FIELDS = ("is_reg", "addr", "value", "shard", "clk")
+
+
+def tokens_to_dict(tok) -> dict:
+    return {k: _u64(getattr(tok, k)) for k in _TOKEN_FIELDS}
+
+
+def tokens_from_dict(d: dict) -> Tokens:
+    return Tokens(*(_u64(d[k]) for k in _TOKEN_FIELDS))
+
+
+def shard_context_to_dict(ctx) -> dict:
+    """A shard's plan: its place, its steps, its token lists and public
+    values; the planned opcode witness (``opcode_assigned``) stays behind."""
+    return {"shard_id": int(ctx.shard_id), "n_shards": int(ctx.n_shards),
+            "step_lo": int(ctx.step_lo), "step_hi": int(ctx.step_hi),
+            "in_tokens": tokens_to_dict(ctx.in_tokens),
+            "out_tokens": tokens_to_dict(ctx.out_tokens), "pv": _u64(ctx.pv)}
+
+
+def shard_context_from_dict(d: dict, opcode_assigned=None) -> ShardContext:
+    """The port's ShardContext from a plan; ``opcode_assigned`` (the port's
+    ``witgen.assign_opcode_chips`` over the shard's steps) may be given."""
+    return ShardContext(int(d["shard_id"]), int(d["n_shards"]), int(d["step_lo"]),
+                        int(d["step_hi"]), tokens_from_dict(d["in_tokens"]),
+                        tokens_from_dict(d["out_tokens"]), _u64(d["pv"]), opcode_assigned)
+
+
+def sharded_proof_to_bytes(sproof, cfg, params) -> list:
+    """Each shard's ``proof_to_bytes``, in shard order."""
+    return [serialize.proof_to_bytes(p, p.public_values, cfg, params) for p in sproof.proofs]
+
+
+def sharded_proof_from_bytes(blobs: list) -> ShardedProof:
+    return ShardedProof([serialize.proof_from_bytes(b)[0] for b in blobs])
 
 
 def digest(plain) -> str:

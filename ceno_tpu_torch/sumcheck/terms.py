@@ -45,7 +45,7 @@ LAUNCHES = {"round_evals": 0, "fold": 0}
 # most output columns (its grid's second axis)
 THREADS = 256
 MAX_BLOCKS = 1024
-MAX_DEG = 7
+MAX_DEG = 8
 MAX_FACTORS = 16
 MAX_FOLD_COLS = 65535
 

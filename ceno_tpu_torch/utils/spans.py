@@ -4,7 +4,10 @@ Copy of ``ceno_tpu/utils/spans.py``: nested named spans with wall-clock
 totals and call counts, collected into a tree report. Zero-cost when disabled
 (the default). Host wall clock only: a span around device work measures the
 device time only where the code inside it waits for the device (a copy to the
-host or ``torch.cuda.synchronize()``).
+host or ``torch.cuda.synchronize()``). Each thread nests its spans on a stack
+of its own, so a span opened on a worker thread (the sharded prover's witgen,
+``zkvm/shard.prove_shards``) starts at the tree's root; a lock guards the
+tree, which the threads share.
 
 Usage::
 
@@ -18,19 +21,27 @@ Usage::
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 
 _enabled = False
-_stack: list = []
+_local = threading.local()  # .stack: this thread's open spans
 _tree: dict = {}
+_lock = threading.Lock()
 
 
 def enable() -> None:
-    global _enabled, _tree, _stack
+    global _enabled, _tree, _local
     _enabled = True
     _tree = {}
-    _stack = []
+    _local = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_local, "stack"):
+        _local.stack = []
+    return _local.stack
 
 
 def disable() -> None:
@@ -43,22 +54,23 @@ def span(name: str):
     if not _enabled:
         yield
         return
-    node = _node(name)
-    _stack.append(node)
+    stack = _stack()
+    node = _node(name, stack)
+    stack.append(node)
     t0 = time.time()
     try:
         yield
     finally:
-        node["total"] += time.time() - t0
-        node["count"] += 1
-        _stack.pop()
+        with _lock:
+            node["total"] += time.time() - t0
+            node["count"] += 1
+        stack.pop()
 
 
-def _node(name: str) -> dict:
-    children = _stack[-1]["children"] if _stack else _tree
-    if name not in children:
-        children[name] = {"total": 0.0, "count": 0, "children": {}}
-    return children[name]
+def _node(name: str, stack: list) -> dict:
+    children = stack[-1]["children"] if stack else _tree
+    with _lock:
+        return children.setdefault(name, {"total": 0.0, "count": 0, "children": {}})
 
 
 def report(min_seconds: float = 0.01) -> str:

@@ -287,15 +287,20 @@ def assign_shard_ram(chip: ShardChipDef, tok: Tokens) -> np.ndarray:
 
 
 def assign_ec_tree(chip: ShardChipDef, tok: Tokens):
-    """Witness (21, 2*pad) for an ec_tree chip + the tree's final sum (2,7).
+    """Witness (21, 2*pad) for an ec_tree chip + the tree's final sum (2,7)."""
+    from ...gkr import eccquark as Q
 
-    The port has the empty tree only (a single-shard proof): a tree over
-    tokens needs ``gkr/eccquark.py``, which comes with continuations (M9)."""
-    if tok.n == 0:
+    direction = chip.kind.rsplit("_", 1)[1]
+    t = tok.n
+    if t == 0:
         return np.zeros((21, 4), np.uint64), np.zeros((2, 7), np.uint64)
-    raise NotImplementedError(
-        f"{chip.name}: an EC tree over {tok.n} tokens needs gkr/eccquark.py, "
-        "not ported yet (M9, continuations)")
+    _, xs, ys = tokens_to_points(tok)
+    if direction == "out":
+        ys = S.neg(ys)
+    half = max(2, 1 << max(0, (t - 1).bit_length()))
+    x, y, s, final = Q.build_tree_witness(xs, ys, 2 * half)
+    wit = np.concatenate([x, y, s], axis=0)  # names x0..6, y0..6, s0..6
+    return wit, final
 
 
 def build_shard_chips() -> list[ShardChipDef]:

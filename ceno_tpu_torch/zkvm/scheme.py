@@ -13,7 +13,12 @@ one shard:
   verify: replay transcript; per chip verify tower + main sumcheck; verify
           the EC-sum proofs against the public rw sums; check the global bus:
           prod(reads) == prod(writes) and sum of logup fractions == 0;
-          verify PCS openings.
+          verify PCS openings. Shard gating (is_first/is_last) controls which
+          RAM init/final tables must be active; standalone verify() is the
+          single-shard case (first == last, no cross-shard tokens allowed).
+
+Cross-shard stitching (public-value chaining + EC sum accumulation across
+shards, verifier.rs:398-475 mirror) lives in zkvm/shard.py.
 
 Transcript order is the soundness contract and is fixed here (v5: class-
 batched main zerocheck — per-chip towers in registry order, then per height
@@ -25,13 +30,10 @@ and proof objects. ``keygen`` and ``prove`` run their device work (the fixed
 and witness commits, records, towers, class mains, openings) on ``device``,
 the card unless the caller names another; the witness, the transcript and
 the verifier stay on the host in numpy, as in the reference. The port's
-keygen commits the fixed stack directly (no ``commit_cached``). It proves
-and verifies one shard: the reference's sharded options (a shard context,
-first/last gating, cross-shard tokens) come with ``zkvm/shard.py``, and its
-EC-sum quark (``gkr/eccquark.py``) with them, so ``prove`` raises
-NotImplementedError if handed an ``ec_tree`` chip with instances. The
-verifier has no aggregation hooks (``capture``, a recording transcript) and
-no replay mode: it always checks."""
+keygen commits the fixed stack directly (no ``commit_cached``). The EC-sum
+quark proofs run their zerochecks on ``device`` too. The verifier has no
+aggregation hooks (``capture``, a recording transcript) and no replay mode:
+it always checks."""
 
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from ..fields import babybear as bb
 from ..fields import ext4_host as exth
 from ..hash.transcript import Transcript
 from ..gkr import chip as chiplib
+from ..gkr import eccquark
 from ..gkr.chip import structural_table
 from ..pcs import basefold, jagged
 from ..utils import spans
@@ -55,7 +58,7 @@ from .chips.shard_ram import build_shard_chips
 from .tables import build_tables, ZKVMConfig
 from .witgen import generate_witness, AssignedChip
 from .layout import (
-    N_PUBLIC_VALUES, PV_SHARD_ID, PV_RW_SUM_IN,
+    N_PUBLIC_VALUES, PV_SHARD_ID, PV_RW_SUM_IN, PV_RW_SUM_OUT,
     PV_HEAP_WORDS, PV_STACK_WORDS, PV_INFO_WORDS,
 )
 
@@ -134,7 +137,7 @@ class ZKVMProof:
     witness_roots: dict        # height -> (8,) canonical
     tower_groups: dict         # tower size N_t -> tower.TowerProof (grouped)
     class_main: dict           # height -> chiplib.ClassMainProof
-    ec_proofs: dict            # chip name -> EC-sum proof; empty in the port (M9)
+    ec_proofs: dict            # chip name -> eccquark.EccQuarkProof
     witness_openings: dict     # height -> basefold.OpeningProof
     fixed_openings: dict       # height -> basefold.OpeningProof
 
@@ -217,6 +220,14 @@ def keygen(program_words: dict, cfg: ZKVMConfig | None = None,
 # Prove
 # ---------------------------------------------------------------------------
 
+# quark-claim geometry: (col_evals offset, chip column base) per extended point
+_EC_POINTS = (
+    ("even", ((7, 0), (14, 7))),          # [0]++rt: x <- evals[7..14), y <- [14..21)
+    ("odd", ((21, 0), (28, 7))),          # [1]++rt
+    ("hi", ((35, 0), (42, 7), (0, 14))),  # rt++[1]: x, y, s
+)
+
+
 def _jagged_plan(layout_by_h: dict):
     """Jagged stacking plan + slice index base per chip from a height-class
     layout dict (h -> [(ci, col_off, n_cols)], ascending h processed)."""
@@ -234,11 +245,9 @@ def _jagged_plan(layout_by_h: dict):
 
 
 def _jagged_claims(layout_by_h: dict, slice_base: dict, openings,
-                   *, fixed: bool = False):
+                   extra_rows: dict, *, fixed: bool = False):
     """Canonical claim order for a jagged opening: per class ascending, per
-    entry, per column the main class-point claim. (The reference appends the
-    EC trees' extra points after these; the port has no EC trees with
-    instances, M9.)"""
+    entry, per column the main class-point claim; then EC extra points."""
     claims = []
     for h in sorted(layout_by_h):
         for ci, off, ncols in layout_by_h[h]:
@@ -247,13 +256,47 @@ def _jagged_claims(layout_by_h: dict, slice_base: dict, openings,
                 claims.append(jagged.JaggedClaim(
                     slice_base[ci] + j, openings[ci].point, evals[j]
                 ))
+    if not fixed:
+        for h in sorted(layout_by_h):
+            for ci, off, ncols in layout_by_h[h]:
+                for point, cols in extra_rows.get(ci, []):
+                    for col_j, val in cols:
+                        claims.append(jagged.JaggedClaim(
+                            slice_base[ci] + col_j, point, val
+                        ))
     return claims
 
 
+def _ec_extended_points(rt: np.ndarray):
+    zero = np.zeros((1, 4), np.uint64)
+    one = exth.one()[None]
+    return {
+        "even": np.concatenate([zero, rt], axis=0),
+        "odd": np.concatenate([one, rt], axis=0),
+        "hi": np.concatenate([rt, one], axis=0),
+    }
+
+
+def _ec_rows(rt: np.ndarray, col_evals: np.ndarray) -> list:
+    """An EC tree's extra opening rows: for each extended point of
+    ``_EC_POINTS``, the (chip column, eval) pairs bound there."""
+    pts = _ec_extended_points(np.asarray(rt, np.uint64))
+    rows = []
+    for pname, claims in _EC_POINTS:
+        cols = []
+        for ev_off, col_base in claims:
+            for c in range(7):
+                cols.append((col_base + c, col_evals[ev_off + c]))
+        rows.append((pts[pname], cols))
+    return rows
+
+
 def prove(pk: ProvingKey, vm, records, public_values: np.ndarray,
-          assigned=None, device=None) -> ZKVMProof:
+          shard_ctx=None, opcode_assigned=None, assigned=None, device=None) -> ZKVMProof:
     """Prove one shard on ``device`` (the card by default). ``assigned``
-    short-circuits witgen with a pre-generated witness."""
+    short-circuits witgen with a pre-generated witness (the P4 host/device
+    pipeline overlaps the next shard's witgen with this shard's device
+    proving, e2e.rs:2266-2406 mirror — see shard.prove_shards)."""
     if len(public_values) != N_PUBLIC_VALUES:
         raise ZKVMError("bad public value count")
     device = device or DEFAULT_DEVICE
@@ -266,8 +309,9 @@ def prove(pk: ProvingKey, vm, records, public_values: np.ndarray,
         with spans.span("witgen"):
             assigned = generate_witness(
                 records, pk.opcode_chips, pk.tables, vm, public_values,
-                pk.cfg, shard_chips=pk.shard_chips, dyn_chips=pk.dyn_chips,
-                data_image=pk.data_image,
+                pk.cfg, shard_ctx=shard_ctx, shard_chips=pk.shard_chips,
+                dyn_chips=pk.dyn_chips,
+                opcode_assigned=opcode_assigned, data_image=pk.data_image,
             )
 
     # MOCK_PROVING mirror (e2e.rs:2069, mock_prover.rs:956): with
@@ -282,14 +326,6 @@ def prove(pk: ProvingKey, vm, records, public_values: np.ndarray,
              _fixed_matrix(pk, a, a.n_rows), public_values, a.num_instances)
             for a in assigned if a.num_instances > 0
         ])
-
-    # the reference proves each EC tree with instances by a Quark EC-sum
-    # proof after the class mains; the port has none yet
-    for a in assigned:
-        if a.kind.startswith("ec_tree") and a.num_instances:
-            raise NotImplementedError(
-                f"{a.name}: the EC-sum quark proof (gkr/eccquark.py) is not "
-                "ported yet (M9, continuations)")
 
     # group witness columns by height, commit per class. Chips with zero
     # instances are skipped ENTIRELY (no commit, no tower, no main slot) —
@@ -378,11 +414,29 @@ def prove(pk: ProvingKey, vm, records, public_values: np.ndarray,
         for ci, op in zip(members, opens):
             openings[ci] = op
 
+    # Quark EC-sum proofs for the cross-shard trees (registry order)
+    ec_proofs = {}
+    extra_rows: dict = {}  # ci -> [(point, [(col, val)])]
+    pv = np.asarray(public_values, np.uint64)
+    for ci, a in enumerate(assigned):
+        if not a.kind.startswith("ec_tree") or a.num_instances == 0:
+            continue
+        base = PV_RW_SUM_IN if a.kind.endswith("_in") else PV_RW_SUM_OUT
+        fsum = pv[base : base + 14].reshape(2, 7)
+        if not np.array_equal(np.asarray(a.ec_final_sum, np.uint64), fsum):
+            raise ZKVMError(f"{a.name}: tree sum does not match public values")
+        x, y, s = a.wit[0:7], a.wit[7:14], a.wit[14:21]
+        with spans.span(f"ec-sum/{a.name}"):
+            proof, rt = eccquark.prove_ec_sum(x, y, s, a.num_instances, fsum, t,
+                                              device=device)
+        ec_proofs[a.name] = proof
+        extra_rows[ci] = _ec_rows(rt, proof.col_evals)
+
     # PCS openings: witness then fixed
     witness_openings = {}
     fixed_openings = {}
     if pk.params.jagged:
-        claims = _jagged_claims(wit_layout, wslice, openings)
+        claims = _jagged_claims(wit_layout, wslice, openings, extra_rows)
         with spans.span("open/jagged-wit"):
             witness_openings[jl_w.n_r] = jagged.open_jagged(
                 wit_committed[jl_w.n_r], jl_w, claims, t, pk.params
@@ -394,7 +448,7 @@ def prove(pk: ProvingKey, vm, records, public_values: np.ndarray,
         jl_f, fslice = _jagged_plan(pk.fixed_layout)
         fclaims = _jagged_claims(
             {h: es for h, es in active_fixed.items() if es},
-            fslice, openings, fixed=True,
+            fslice, openings, {}, fixed=True,
         )
         with spans.span("open/jagged-fixed"):
             fixed_openings[jl_f.n_r] = jagged.open_jagged(
@@ -402,7 +456,7 @@ def prove(pk: ProvingKey, vm, records, public_values: np.ndarray,
             )
     else:
         for h in sorted(wit_committed):
-            points, claims = _class_claims(wit_layout[h], openings)
+            points, claims = _class_claims(wit_layout[h], openings, extra_rows)
             with spans.span(f"open/2^{h.bit_length() - 1}"):
                 witness_openings[h] = basefold.open_batch(
                     wit_committed[h], points, claims, t, pk.params
@@ -421,26 +475,33 @@ def prove(pk: ProvingKey, vm, records, public_values: np.ndarray,
             )
 
     return ZKVMProof(
-        np.asarray(public_values, np.uint64),
+        pv,
         [a.num_instances for a in assigned],
         {h: c.root for h, c in wit_committed.items()},
         tower_groups,
         class_main,
-        {},
+        ec_proofs,
         witness_openings,
         fixed_openings,
     )
 
 
-def _class_claims(entries, openings):
+def _class_claims(entries, openings, extra_rows):
     """Opening points for one height class: the SHARED class main point
     (every chip opens at the batched zerocheck's point — one point per
-    class). The reference adds the EC trees' extra rows (M9)."""
+    class), then any extra EC rows (chip order, even/odd/hi)."""
     points = [openings[entries[0][0]].point]
     claims = []
     for ci, off, ncols in entries:
         for j in range(ncols):
             claims.append(Claim(0, off + j, openings[ci].wit_evals[j]))
+    k_next = 1
+    for ci, off, ncols in entries:
+        for point, cols in extra_rows.get(ci, []):
+            points.append(point)
+            for col_j, val in cols:
+                claims.append(Claim(k_next, off + col_j, val))
+            k_next += 1
     return np.stack(points), claims
 
 
@@ -462,31 +523,44 @@ class ZKVMError(Exception):
     pass
 
 
-def derive_shard_layout(vk: VerifyingKey, num_instances, pv):
+def derive_shard_layout(vk: VerifyingKey, num_instances, pv,
+                        is_first: bool = True, is_last: bool = True,
+                        standalone: bool = True):
     """Public geometry -> (wit_layout, heights, chip_active): the class
-    grouping the verifier derives from num_instances + chip kinds, for one
-    shard (the first and the last). Raises on gating violations: every
-    table is full, each dynamic-RAM chip has its public length, and no
-    shard-RAM or EC-tree chip carries tokens."""
+    grouping the verifier derives from num_instances + chip kinds. Raises
+    on gating violations: a table is full exactly in the shards its gate
+    names, a dynamic-RAM chip has its public length exactly there, and a
+    standalone proof carries no shard-RAM or EC-tree tokens."""
     wit_layout: dict = {}
     heights = []
     chip_active = []
     for ci, meta in enumerate(vk.metas):
         k = num_instances[ci]
         if meta.is_table:
-            if k != meta.table_rows:
+            active = (
+                (meta.gate == "always")
+                or (meta.gate == "first" and is_first)
+                or (meta.gate == "last" and is_last)
+            )
+            if active and k != meta.table_rows:
                 raise ZKVMError(f"{meta.name}: table must be active in this shard")
+            if not active and k != 0:
+                raise ZKVMError(f"{meta.name}: table must be inactive in this shard")
         elif meta.kind.startswith("dyn_ram"):
+            active = (meta.gate == "first" and is_first) or (
+                meta.gate == "last" and is_last
+            )
             slot = (
                 PV_HEAP_WORDS if "heap" in meta.name
                 else PV_INFO_WORDS if "info" in meta.name
                 else PV_STACK_WORDS
             )
-            if k != int(pv[slot]):
+            expect = int(pv[slot]) if active else 0
+            if k != expect:
                 raise ZKVMError(
-                    f"{meta.name}: instance count {k} != public RAM length {int(pv[slot])}"
+                    f"{meta.name}: instance count {k} != public RAM length {expect}"
                 )
-        elif meta.kind.startswith(("shard_ram", "ec_tree")) and k != 0:
+        if standalone and meta.kind.startswith(("shard_ram", "ec_tree")) and k != 0:
             raise ZKVMError(f"{meta.name}: standalone proof cannot carry tokens")
         chip_active.append(k > 0)
         h = chip_height(meta, k)
@@ -499,40 +573,44 @@ def derive_shard_layout(vk: VerifyingKey, num_instances, pv):
     return wit_layout, heights, chip_active
 
 
-def verify(vk: VerifyingKey, proof: ZKVMProof) -> bool:
-    """Verify a standalone proof: shard 0, which is also the last, with an
-    empty cross-shard bus.
+def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
+           is_last: bool = True, standalone: bool = True,
+           expect_halt: bool = True) -> bool:
+    """Verify one shard proof. ``standalone`` (the single-shard public API)
+    additionally requires shard_id == 0 and an empty cross-shard bus.
 
-    It requires exactly one halt-chip instance (reference: verifier.rs
-    ``has_halt``): the halt chip is what binds PV_END_PC/PV_END_CYCLE/exit
-    code to a real ECALL-HALT, so without this check a prover could present
-    a trace that simply ran out without halting while claiming arbitrary
-    end-state public values. The verifier is host numpy, so it takes no
-    device."""
+    ``expect_halt`` (reference: verifier.rs ``has_halt``): on the LAST
+    shard, require exactly one halt-chip instance — the halt chip is what
+    binds PV_END_PC/PV_END_CYCLE/exit code to a real ECALL-HALT, so without
+    this check a prover could present a trace that simply ran out without
+    halting while claiming arbitrary end-state public values. The verifier
+    is host numpy, so it takes no device."""
     pv = np.asarray(proof.public_values, np.uint64)
     if len(pv) != N_PUBLIC_VALUES:
         raise ZKVMError("bad public value count")
-    if int(pv[PV_SHARD_ID]) != 0:
-        raise ZKVMError("standalone proof must be shard 0")
-    if pv[PV_RW_SUM_IN:PV_RW_SUM_IN + 28].any():
-        raise ZKVMError("standalone proof must have empty rw sums")
+    if standalone:
+        if int(pv[PV_SHARD_ID]) != 0:
+            raise ZKVMError("standalone proof must be shard 0")
+        if pv[PV_RW_SUM_IN:PV_RW_SUM_IN + 28].any():
+            raise ZKVMError("standalone proof must have empty rw sums")
     t = Transcript(LABEL)
     t.append(vk.digest_elems())
     t.append(pv)
 
     if len(proof.num_instances) != len(vk.metas):
         raise ZKVMError("chip count mismatch")
-    n_halt = sum(
-        int(proof.num_instances[ci])
-        for ci, meta in enumerate(vk.metas) if meta.name == "halt"
-    )
-    if n_halt != 1:
-        raise ZKVMError(f"final shard must halt exactly once (got {n_halt})")
+    if is_last and expect_halt:
+        n_halt = sum(
+            int(proof.num_instances[ci])
+            for ci, meta in enumerate(vk.metas) if meta.name == "halt"
+        )
+        if n_halt != 1:
+            raise ZKVMError(f"final shard must halt exactly once (got {n_halt})")
 
     # reconstruct class grouping from num_instances + chip kinds; chips
     # with zero instances are skipped entirely (mirrors the prover)
     wit_layout, heights, chip_active = derive_shard_layout(
-        vk, proof.num_instances, pv
+        vk, proof.num_instances, pv, is_first, is_last, standalone
     )
     if vk.params.jagged:
         jl_w, wslice = _jagged_plan(wit_layout)
@@ -605,10 +683,27 @@ def verify(vk: VerifyingKey, proof: ZKVMProof) -> bool:
         for ci, op in zip(members, opens):
             openings[ci] = op
 
-    # a standalone proof has empty EC trees (derive_shard_layout), hence
-    # no EC-sum quark proofs; its rw sums were checked zero above
-    if proof.ec_proofs:
-        raise ZKVMError("standalone proof cannot carry EC-sum proofs")
+    # EC-sum quark proofs (registry order, matching the prover)
+    extra_rows: dict = {}
+    for ci, meta in enumerate(vk.metas):
+        if not meta.kind.startswith("ec_tree"):
+            continue
+        k = proof.num_instances[ci]
+        base = PV_RW_SUM_IN if meta.kind.endswith("_in") else PV_RW_SUM_OUT
+        fsum = pv[base : base + 14].reshape(2, 7)
+        if k == 0:
+            if fsum.any():
+                raise ZKVMError(f"{meta.name}: empty tree but nonzero rw sum")
+            if meta.name in proof.ec_proofs:
+                raise ZKVMError(f"{meta.name}: unexpected ec proof")
+            continue
+        ecp = proof.ec_proofs.get(meta.name)
+        if ecp is None:
+            raise ZKVMError(f"{meta.name}: missing ec proof")
+        if ecp.num_instances != k or ecp.n_vars != heights[ci].bit_length() - 2:
+            raise ZKVMError(f"{meta.name}: ec proof geometry mismatch")
+        rt, evals = eccquark.verify_ec_sum(ecp, fsum, t)
+        extra_rows[ci] = _ec_rows(rt, evals)
 
     if not np.array_equal(prod_r, prod_w):
         raise ZKVMError("global read/write product mismatch")
@@ -620,7 +715,7 @@ def verify(vk: VerifyingKey, proof: ZKVMProof) -> bool:
     if vk.params.jagged:
         if set(proof.witness_openings) != {jl_w.n_r}:
             raise ZKVMError("jagged proof must carry exactly one witness opening")
-        claims = _jagged_claims(wit_layout, wslice, openings)
+        claims = _jagged_claims(wit_layout, wslice, openings, extra_rows)
         jagged.verify_jagged(
             proof.witness_roots[jl_w.n_r], jl_w, claims,
             proof.witness_openings[jl_w.n_r], t, vk.params,
@@ -634,7 +729,7 @@ def verify(vk: VerifyingKey, proof: ZKVMProof) -> bool:
         }
         fclaims = _jagged_claims(
             {h: es for h, es in active_fixed.items() if es},
-            fslice, openings, fixed=True,
+            fslice, openings, {}, fixed=True,
         )
         jagged.verify_jagged(
             vk.fixed_roots[jl_f.n_r], jl_f, fclaims,
@@ -643,7 +738,7 @@ def verify(vk: VerifyingKey, proof: ZKVMProof) -> bool:
         return True
     for h in sorted(wit_layout):
         entries = wit_layout[h]
-        points, claims = _class_claims(entries, openings)
+        points, claims = _class_claims(entries, openings, extra_rows)
         n_cols = sum(e[2] for e in entries)
         basefold.verify_batch(
             proof.witness_roots[h], h.bit_length() - 1, n_cols, points,

@@ -15,9 +15,9 @@ verifier pins its own and rejects proofs whose embedded copies differ
 (ADVICE.md: an attacker must not choose n_queries/blowup).
 
 Counterpart of ``ceno_tpu/zkvm/serialize.py``: the same format, byte for
-byte. Its whitelist holds the port's own classes of a single-shard proof;
-the classes of modules not ported yet (the EC-sum quark, shards,
-aggregation, WHIR) are left out, so a proof naming one is refused with
+byte. Its whitelist holds the port's own classes of a shard's proof, the
+EC-sum quark's and the sharded proof's; the classes of modules not ported
+yet (aggregation, WHIR) are left out, so a proof naming one is refused with
 ProofFormatError. Every array of a proof object must be numpy, ``uint64``
 exactly where the reference has one: a tensor raises, and another dtype
 encodes to other bytes.
@@ -51,11 +51,13 @@ def _whitelist():
     from .tables import ZKVMConfig
     from ..emulator.state import Platform
     from .scheme import ZKVMProof
+    from ..gkr.eccquark import EccQuarkProof
+    from .shard import ShardedProof
 
     classes = [
         ZKVMProof, ChipProof, ClassMainProof, TowerProof,
         OpeningProof, QueryProof, JaggedOpening,
-        BasefoldParams, ZKVMConfig, Platform,
+        BasefoldParams, ZKVMConfig, Platform, EccQuarkProof, ShardedProof,
     ]
     return {c.__name__: c for c in classes}
 

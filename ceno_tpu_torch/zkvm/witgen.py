@@ -7,15 +7,17 @@ multiplicities (LkMultiplicity mirror) by evaluating every chip's lookup field
 expressions over its assigned rows, then assign the table chips from the
 counts + final VM state.
 
-Single shard: every table and dynamic-RAM chip is active, and the
-shard-RAM / EC-tree chips are assigned from empty token lists.
+Sharded mode (shard_ctx set): opcode chips see only the shard's step slice,
+the shard-RAM / EC-tree chips are assigned from the shard's token lists, and
+the RAM init/final tables are gated to the first/last shard (inactive tables
+prove with num_instances = 0 — all rows padding).
 
-Port of ``ceno_tpu/zkvm/witgen.py``'s single-shard path, with the same
-relative imports. The reference's sharded mode (a shard context with token
-lists and first/last gating, and reuse of planned opcode matrices) comes
-with ``zkvm/shard.py`` (continuations). Unlike the reference,
-``generate_witness`` times three of its steps in spans (``opcode-chips``,
-``lookup-counts``, ``tables``).
+Port of ``ceno_tpu/zkvm/witgen.py``, with the same relative imports. It is
+host numpy and launches nothing on the card, so ``zkvm/shard.prove_shards``
+runs it on a host thread. The reference's hooks for the Goldilocks package's
+shard assigners (``assign_shard_fn`` / ``assign_tree_fn``) come with that
+package (M13). Unlike the reference, ``generate_witness`` times three of its
+steps in spans (``opcode-chips``, ``lookup-counts``, ``tables``).
 """
 
 from __future__ import annotations
@@ -107,8 +109,10 @@ _MOCK_CHAL = np.array([[5, 7, 11, 13], [17, 19, 23, 29]], np.uint64)
 
 
 def assign_opcode_chips(view, opcode_chips: list[ChipDef]):
-    """Stage 1: fill opcode-chip matrices from a trace view. Lookup counting
-    is stage 2."""
+    """Stage 1: fill opcode-chip matrices from a (possibly sliced) trace view.
+
+    Lookup counting is deferred (stage 2) so the shard planner can run on the
+    assigned matrices in between."""
     covered = np.zeros(view.n, bool)
     assigned = []
     for chip in opcode_chips:
@@ -130,6 +134,14 @@ def assign_opcode_chips(view, opcode_chips: list[ChipDef]):
     return assigned
 
 
+def _table_active(gate: str, shard_ctx) -> bool:
+    if gate == "always" or shard_ctx is None:
+        return True
+    if gate == "first":
+        return shard_ctx.shard_id == 0
+    return shard_ctx.shard_id == shard_ctx.n_shards - 1
+
+
 def generate_witness(
     records,
     opcode_chips: list[ChipDef],
@@ -137,17 +149,23 @@ def generate_witness(
     vm,
     instances: np.ndarray,
     cfg: ZKVMConfig,
+    shard_ctx=None,
     shard_chips: list | None = None,
     dyn_chips: list | None = None,
+    opcode_assigned: list | None = None,
     data_image: dict | None = None,
 ):
     """Returns the assigned list in registry order: opcode chips, shard
-    chips (if any), dynamic-RAM chips (if any), then tables."""
+    chips (if any), dynamic-RAM chips (if any), then tables.
+    ``opcode_assigned`` lets the sharded driver reuse matrices it already
+    built for planning."""
     from .chips.opcodes import TraceView
 
-    view = records if isinstance(records, TraceView) else TraceView.from_records(records)
-    with spans.span("opcode-chips"):
-        assigned = assign_opcode_chips(view, opcode_chips)
+    if opcode_assigned is None:
+        view = records if isinstance(records, TraceView) else TraceView.from_records(records)
+        with spans.span("opcode-chips"):
+            opcode_assigned = assign_opcode_chips(view, opcode_chips)
+    assigned = list(opcode_assigned)
     counts: dict = {}
     with spans.span("lookup-counts"):
         for a in assigned:
@@ -157,18 +175,23 @@ def generate_witness(
     if shard_chips:
         from .chips.shard_ram import assign_shard_ram, assign_ec_tree, Tokens
 
-        # one shard sends and receives no cross-shard tokens
-        tok = Tokens.empty()
+        tok_in = shard_ctx.in_tokens if shard_ctx else Tokens.empty()
+        tok_out = shard_ctx.out_tokens if shard_ctx else Tokens.empty()
         for chip in shard_chips:
+            tok = tok_in if chip.kind.endswith("_in") else tok_out
             fsum = None
             if chip.kind.startswith("shard_ram"):
                 wit = assign_shard_ram(chip, tok)
             else:
                 wit, fsum = assign_ec_tree(chip, tok)
-            assigned.append(AssignedChip(
-                chip.name, chip.compiled, chip.cb, wit, 0, wit.shape[1],
+            k = tok.n
+            a = AssignedChip(
+                chip.name, chip.compiled, chip.cb, wit, k, wit.shape[1],
                 False, kind=chip.kind, ec_final_sum=fsum,
-            ))
+            )
+            if k:
+                _lk_counts(chip.cb, chip.compiled, wit, instances, k, counts)
+            assigned.append(a)
 
     if dyn_chips:
         from .chips.dyn_ram import assign_dyn_ram, dyn_region_words
@@ -176,8 +199,9 @@ def generate_witness(
         lens = dyn_region_words(vm, cfg)
         pv = np.asarray(instances, np.uint64)
         for chip in dyn_chips:
-            k = int(pv[chip.pv_slot])
-            if k < lens[chip.region]:
+            active = _table_active(chip.gate, shard_ctx)
+            k = int(pv[chip.pv_slot]) if active else 0
+            if active and k < lens[chip.region]:
                 raise AssertionError(
                     f"{chip.name}: public {chip.region} length {k} does not "
                     f"cover the {lens[chip.region]} accessed words"
@@ -210,11 +234,18 @@ def generate_witness(
     ctx = WitgenCtx(counts, vm, None, cfg)
     with spans.span("tables"):
         for t in tables:
-            wit = _pad_pow2(t.assign(ctx), t.n_rows)
+            if _table_active(t.gate, shard_ctx):
+                wit = t.assign(ctx)
+                k = t.n_rows
+            else:
+                # inactive shard-gated table: all rows padding, but keep the full
+                # height so its fixed columns open against the keygen commitment
+                wit = np.zeros((len(t.cb.wit_names), t.n_rows), np.uint64)
+                k = 0
+            wit = _pad_pow2(wit, t.n_rows)
             assigned.append(
                 AssignedChip(
-                    t.name, t.compiled, t.cb, wit, t.n_rows, wit.shape[1], True,
-                    kind="table",
+                    t.name, t.compiled, t.cb, wit, k, wit.shape[1], True, kind="table"
                 )
             )
     return assigned

@@ -60,14 +60,33 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and ``BasefoldParams()``
      must have the SHA-256 and length of the reference's
      (``ceno_tpu_torch/golden/e2e_fibonacci.json``) and verify;
-  6. report: phase 3's span tree; the launch counts of phase 3 and of
+  6. continuations: first the golden gate, ``prove_shards`` (pipelined) of
+     ``fibonacci_vm(12)`` at ``tests/test_shard.py``'s setup (40 steps a
+     shard, 3 shards): each shard's proof must have the SHA-256 and length of
+     the reference's (``ceno_tpu_torch/golden/shard_fibonacci.json``),
+     ``verify_shards`` must accept it and reject a broken pc chain, a broken
+     cycle chain, a tampered RW sum and a dropped shard, and ``verify`` an
+     interior shard as a standalone proof. Then the 2^20 fibonacci as two
+     shards on phase 5's key, vm and trace (``bench_shards.py``'s
+     ``max_steps = (n + 1) // 2 + 8``): the AOT preflight's bounds must equal
+     the trace's ``plan_boundaries``; ``prove_shards`` pipelined on the card
+     (the next shard's witgen on a host thread; every commit, record, tower
+     layer and sumcheck bank checked to lie on the card and to be made on the
+     main thread; the launch counts reset just before and read just after,
+     each kernel's at least one); ``verify_shards`` must accept, the
+     cross-shard EC sum be the identity, and the same tampered proofs be
+     rejected;
+  7. report: phase 3's span tree; the launch counts of phase 3 and of
      phase 5's keygen and timed prove, each equal to its trees' launch
      plans (K1 once a tree, K2 as ``merkle_plan`` plans it); a
      ``{"kernel_shapes": ...}`` line with every shape of phase 2; phase 4's
      span tree and its ``{"gkr": {...}}`` line; phase 5's span tree, its
      proof size beside the reference's, and its ``{"e2e": {...}}`` line; a
      ``{"kernels": [...]}`` line (the largest shapes; launches over phase 5's
-     timed prove, each kernel's at least one), the card line and, last,
+     timed prove, each kernel's at least one); phase 6's span tree, its
+     launch counts and its ``{"shards": {...}}`` line (plan, per-shard,
+     pipelined and stitch-verify seconds, tokens and quark rounds per shard,
+     peak device memory); the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
@@ -86,6 +105,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -95,7 +115,9 @@ from ceno_tpu_torch import interop
 from ceno_tpu_torch.emulator import native, programs
 from ceno_tpu_torch.emulator.state import CYCLE_START
 from ceno_tpu_torch.fields import babybear as bb
+from ceno_tpu_torch.fields import septic
 from ceno_tpu_torch.gkr import chip as gkr_chip
+from ceno_tpu_torch.gkr import eccquark
 from ceno_tpu_torch.gkr import tower
 from ceno_tpu_torch.gkr.chip import ChipError
 from ceno_tpu_torch.gkr.tower import TowerError
@@ -105,9 +127,10 @@ from ceno_tpu_torch.mle import ops
 from ceno_tpu_torch.pcs import basefold as bf
 from ceno_tpu_torch.pcs import jagged as jg
 from ceno_tpu_torch.sumcheck import fused, terms
+from ceno_tpu_torch.sumcheck import prover as sc_prover
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 from ceno_tpu_torch.utils import cuda_build, spans
-from ceno_tpu_torch.zkvm import e2e, layout, scheme, serialize, witgen
+from ceno_tpu_torch.zkvm import e2e, layout, scheme, serialize, shard, witgen
 from ceno_tpu_torch.zkvm.chips.opcodes import build_opcode_chips
 from ceno_tpu_torch.zkvm.tables import ZKVMConfig
 
@@ -148,6 +171,14 @@ CLASS_MAINS = [  # the 2^19 class (addi), and the 2^18 class (add, beq, jal) of 
     {"log_n": 19, "base": 23, "ext": 1, "terms": 83, "db": 2, "de": 1, "deg": 3},
     {"log_n": 18, "base": 62, "ext": 3, "terms": 215, "db": 3, "de": 1, "deg": 4},
 ]
+# The sharded 2^20 fibonacci's sumchecks that the single-shard proof does not
+# run (phase 6 checks that its sharded prove runs them): the first round of
+# the 2^9 class main of a shard-RAM chip alone (288 tokens; its Poseidon2
+# columns make it the one main of degree 8) and of the EC-sum quark over a
+# tree of 2^10 rows (9 rounds), with the quark's own term table.
+SHARD_CLASS_MAIN = {"log_n": 9, "base": 315, "ext": 1, "terms": 3289, "db": 7, "de": 1,
+                    "deg": 8}
+QUARK_LOG_N = 9
 MULS_PER_PRODUCT = 3  # 32-bit multiplies of one Montgomery product
 EXT_PRODUCTS = 16     # base products of one ext4 product (the x^4 = 11 wrap adds none)
 
@@ -406,15 +437,33 @@ def main_path_sumchecks(rng) -> list:
     dev_idx = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)  # noqa: E731
     out.append((f"tower level {TOWER_LOG_N} of the 2^{TOWER_LOG_N + 1} group", base, ext,
                 dev_idx(bidx), dev_idx(eidx), pows[:, torch.from_numpy(alpha_idx).to(DEVICE)], deg))
-    for cm in CLASS_MAINS:
+    for cm in CLASS_MAINS + [SHARD_CLASS_MAIN]:
         base, ext = random_banks(rng, cm["base"], cm["ext"], 1 << cm["log_n"])
         t = cm["terms"]
-        out.append((f"2^{cm['log_n']} class main, first round", base, ext,
+        what = "shard-RAM " if cm is SHARD_CLASS_MAIN else ""
+        out.append((f"{what}2^{cm['log_n']} class main, first round", base, ext,
                     dev_idx(rng.integers(0, cm["base"] + 1, size=(t, cm["db"]))),
                     dev_idx(rng.integers(0, cm["ext"] + 1, size=(t, cm["de"]))),
                     bb.to_device(rng.integers(1, bb.P, size=(4, t), dtype=np.uint64), DEVICE),
                     cm["deg"]))
+    bidx, eidx, scal, deg = quark_terms(rng)
+    base, ext = random_banks(rng, 7 * eccquark.DEG, 3, 1 << QUARK_LOG_N)
+    out.append((f"EC-sum quark over 2^{QUARK_LOG_N + 1} rows, first round", base, ext,
+                dev_idx(bidx), dev_idx(eidx), bb.to_device(scal.T, DEVICE), deg))
     return out
+
+
+def quark_terms(rng) -> tuple:
+    """The EC-sum quark's live term table (``eccquark._build_terms`` over
+    seeded alpha powers and final sum, packed by ``compile_terms``): (bidx,
+    eidx, canonical scalars (T, 4), deg). Its export terms have no base
+    factor and index the base bank's ones column."""
+    alphas = rng.integers(1, bb.P, size=(7 * eccquark.DEG, 4), dtype=np.uint64)
+    final = rng.integers(1, bb.P, size=(2, 7), dtype=np.uint64)
+    terms_ = eccquark._build_terms(alphas, final)
+    bidx, eidx, scal, deg = sc_prover.compile_terms(terms_, 7 * eccquark.DEG, 3)
+    live = np.nonzero(scal.any(axis=1))[0]
+    return bidx[live], eidx[live], scal[live], deg
 
 
 def round_evals_bound(base, ext, bidx, eidx, scalars, deg: int) -> tuple:
@@ -698,16 +747,24 @@ def gkr_digests(run: dict) -> dict:
     }
 
 
+def on_main_thread(what: str) -> None:
+    """Device work runs on the main thread only (the sharded prover's witgen
+    thread is host numpy)."""
+    if threading.current_thread() is not threading.main_thread():
+        fail(f"{what} made on the thread {threading.current_thread().name}, not the main thread")
+
+
 @contextlib.contextmanager
 def device_audit():
     """Record the device of every tower layer and every sumcheck bank made
     inside the block (the tower's layer builders and the banks' constructor,
-    wrapped for its length)."""
+    wrapped for its length); each must be made on the main thread."""
     seen = {"layers": [], "banks": []}
     originals = (tower.product_layers, tower.logup_layers, terms.make_banks)
 
     def wrap(fn, key, tensors):
         def inner(*args, **kwargs):
+            on_main_thread(key)
             out = fn(*args, **kwargs)
             seen[key] += [x.device.type for x in tensors(out)]
             return out
@@ -855,6 +912,18 @@ def first_rounds(calls) -> list:
     return out
 
 
+def shard_shapes() -> list:
+    """Phase 2's sumcheck shapes of the sharded proof only (SHARD_CLASS_MAIN,
+    the quark), as :func:`first_rounds` gives them."""
+    cm = SHARD_CLASS_MAIN
+    n = 1 << cm["log_n"]
+    t = len(eccquark._term_schedule()[0])  # 455, every one live
+    return [{"base": [cm["base"] + 1, n], "ext": [4, cm["ext"] + 1, n], "terms": cm["terms"],
+             "db": cm["db"], "de": cm["de"], "deg": cm["deg"], "live": cm["terms"]},
+            {"base": [7 * eccquark.DEG + 1, 1 << QUARK_LOG_N], "ext": [4, 4, 1 << QUARK_LOG_N],
+             "terms": t, "db": 2, "de": 1, "deg": 3, "live": t}]
+
+
 def check_main_path_shapes(shapes: list) -> None:
     """Phase 2's sumcheck shapes (TOWER_*, CLASS_MAINS) are among the first
     rounds the GKR stages ran."""
@@ -995,15 +1064,17 @@ def prove_trees(pk, proof) -> list:
 def prove_audit():
     """:func:`device_audit` over a whole prove, with the witness commits
     (``basefold.commit``: evals and codeword) and the records
-    (``build_tower_inputs``) recorded as well."""
+    (``build_tower_inputs``) recorded as well, each on the main thread."""
     originals = (bf.commit, gkr_chip.build_tower_inputs)
 
     def commit(*args, **kwargs):
+        on_main_thread("commits")
         out = originals[0](*args, **kwargs)
         seen["commits"] += [out.cols.device.type, out.codeword.device.type]
         return out
 
     def tower_inputs(*args, **kwargs):
+        on_main_thread("records")
         out = originals[1](*args, **kwargs)
         seen["records"] += [x.device.type for x in out.prods + [m for pq in out.lps for m in pq]]
         return out
@@ -1064,7 +1135,8 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
     proofs must be the same bytes, and each tampered proof must be rejected.
     The launch counts are reset just before keygen and before the second
     prove, and read just after each. Returns (the ``e2e`` line, the timed
-    prove's span report, {"keygen" | "prove": (launches, planned trees)})."""
+    prove's span report, {"keygen" | "prove": (launches, planned trees)},
+    (the key, the halted vm, the trace) for the continuations phase)."""
     seconds = {}
     t0 = time.time()
     vm = programs.fibonacci_vm(n)
@@ -1140,7 +1212,7 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
             "tower_groups": groups, "classes": classes, "checked_on_device": checked}
     if sorted(groups) != sorted(f"2^{n_t.bit_length() - 1}" for n_t in proof.tower_groups):
         fail(f"e2e: tower groups {sorted(groups)} against the proof's {sorted(proof.tower_groups)}")
-    return line, span_report, counted
+    return line, span_report, counted, (pk, vm, trace)
 
 
 def e2e_golden_check() -> dict:
@@ -1169,6 +1241,198 @@ def e2e_golden_check() -> dict:
     log(f"e2e: the proof of {setup['program']} at BasefoldParams() equals the reference's "
         f"({len(data)} bytes, sha256 {got['proof_sha256'][:16]}...) and verifies")
     return got
+
+
+# -- phase 6: continuations: the 2^20 fibonacci as chained shards -----------------
+
+# the setup of the reference's committed sharded proof digests
+# (tools/torch_shard_golden.py; tests/test_shard.py's setup)
+SHARD_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "shard_fibonacci.json")
+SHARD_GOLDEN_ITERS = 12
+SHARD_GOLDEN_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
+SHARD_GOLDEN_PARAMS = {"blowup_log": 1, "n_queries": 4, "stop_size": 32}
+SHARD_GOLDEN_STEPS = 40
+SHARD_ERRORS = PROTOCOL_ERRORS + (shard.ShardChainError, eccquark.EccError)
+SHARD_CHIPS = ("shard_ram_in", "shard_ram_out", "ec_tree_in", "ec_tree_out")
+
+
+def max_steps_per_shard(n_steps: int) -> int:
+    """bench_shards.py's shard size: two shards of the trace."""
+    return (n_steps + 1) // 2 + 8
+
+
+def sharded_tampered(sproof) -> list:
+    """(what, sharded proof) pairs, each changed in one place the stitching
+    verifier must reject: a broken pc chain and a broken cycle chain (shard
+    1's initial pc or cycle, which the chain check meets before shard 1's
+    proof), a tampered RW sum (shard 0's exported EC sum) and a dropped last
+    shard."""
+    out = []
+    for what, slot in (("pc chain", layout.PV_INIT_PC), ("cycle chain", layout.PV_INIT_CYCLE)):
+        bad = copy.deepcopy(sproof)
+        bump(bad.proofs[1].public_values, slot)
+        out.append((what, bad))
+    bad = copy.deepcopy(sproof)
+    bump(bad.proofs[0].public_values, layout.PV_RW_SUM_OUT)
+    out.append(("rw sum", bad))
+    bad = copy.deepcopy(sproof)
+    bad.proofs = bad.proofs[:-1]
+    bad.n_shards -= 1
+    out.append(("dropped shard", bad))
+    return out
+
+
+def check_shard_rejections(vk, sproof, what: str) -> dict:
+    """Each of :func:`sharded_tampered` must be rejected by ``verify_shards``,
+    and shard 1 alone by the standalone ``verify``; returns the errors."""
+    errors = {}
+    for kind, bad in sharded_tampered(sproof):
+        try:
+            shard.verify_shards(vk, bad)
+        except SHARD_ERRORS as e:
+            errors[kind] = f"{type(e).__name__}: {str(e)[:80]}"
+        else:
+            fail(f"{what}: a sharded proof with a changed {kind} was accepted")
+    try:
+        scheme.verify(vk, sproof.proofs[1])
+    except scheme.ZKVMError as e:
+        errors["standalone shard 1"] = f"ZKVMError: {str(e)[:80]}"
+    else:
+        fail(f"{what}: shard 1 was accepted as a standalone proof")
+    for kind, err in errors.items():
+        log(f"{what}: {kind} rejected ({err})")
+    return errors
+
+
+def shard_digests(sproof, cfg, params) -> dict:
+    """The shard count and each shard's proof bytes' SHA-256 and length."""
+    blobs = interop.sharded_proof_to_bytes(sproof, cfg, params)
+    return {"n_shards": len(blobs),
+            "shards": [{"proof_sha256": hashlib.sha256(b).hexdigest(), "proof_bytes": len(b)}
+                       for b in blobs]}
+
+
+def shard_golden_check() -> dict:
+    """The port's sharded proof of the reference's committed setup, pipelined
+    on DEVICE under the device audit: each shard's bytes' SHA-256 and length
+    must equal SHARD_GOLDEN's; ``verify_shards`` must accept it and reject
+    each tampered proof. Returns the digests, the rejections' errors and the
+    audit's counts."""
+    with open(SHARD_GOLDEN) as f:
+        want = json.load(f)
+    setup = {"program": f"fibonacci_vm({SHARD_GOLDEN_ITERS})", "cfg": SHARD_GOLDEN_CFG,
+             "params": SHARD_GOLDEN_PARAMS, "max_steps_per_shard": SHARD_GOLDEN_STEPS}
+    if {k: want[k] for k in setup} != setup:
+        fail(f"{os.path.relpath(SHARD_GOLDEN, ROOT)} names {want}, chip_smoke proves {setup}")
+    vm = programs.fibonacci_vm(SHARD_GOLDEN_ITERS)
+    trace = native.run_trace_native(vm)
+    pk = scheme.keygen(vm.program, ZKVMConfig(**SHARD_GOLDEN_CFG),
+                       bf.BasefoldParams(**SHARD_GOLDEN_PARAMS), device=DEVICE)
+    with prove_audit() as seen:
+        sproof = shard.prove_shards(pk, vm, trace, SHARD_GOLDEN_STEPS, device=DEVICE)
+    checked = on_device(seen)
+    got = shard_digests(sproof, pk.cfg, pk.params)
+    if got != {k: want[k] for k in got}:
+        fail(f"the sharded proof of {setup['program']} differs from the reference's: "
+             f"{got} against {want}")
+    if shard.verify_shards(pk.vk, sproof) is not True:
+        fail(f"the sharded proof of {setup['program']} was not accepted")
+    log(f"shards: the {got['n_shards']} shard proofs of {setup['program']} equal the "
+        f"reference's ({[s['proof_bytes'] for s in got['shards']]} bytes) and verify_shards "
+        "accepts them")
+    got["rejected"] = check_shard_rejections(pk.vk, sproof, "shards (golden)")
+    got["checked_on_device"] = checked
+    return got
+
+
+def ec_sum_of(sproof) -> tuple:
+    """The sum of every shard's imported and exported EC sums (public values)."""
+    acc = (np.zeros(7, np.uint64), np.zeros(7, np.uint64))
+    for proof in sproof.proofs:
+        pv = np.asarray(proof.public_values, np.uint64)
+        for base in (layout.PV_RW_SUM_IN, layout.PV_RW_SUM_OUT):
+            acc = septic.point_add(acc, (pv[base:base + 7], pv[base + 7:base + 14]))
+    return acc
+
+
+def run_continuations(pk, vm, trace, n: int) -> tuple:
+    """The 2^20 fibonacci as chained shards, on phase 5's key, vm (halted) and
+    trace: the AOT preflight's plan against the traced plan, then
+    ``prove_shards`` pipelined on DEVICE with spans, the device audit and the
+    launch counts (reset just before, read just after), then
+    ``verify_shards``; the cross-shard EC sum must be the identity, and the
+    tampered proofs must be rejected. Returns (the ``shards`` line, the span
+    report, the launches)."""
+    seconds = {}
+    max_steps = max_steps_per_shard(trace.n)
+    t0 = time.time()
+    traced = shard.plan_boundaries(trace, pk.opcode_chips, None, max_steps)
+    seconds["plan_boundaries"] = time.time() - t0
+    t0 = time.time()
+    bounds, _, steps, state = native.run_preflight(
+        programs.fibonacci_vm(n), shard._cost_by_kind(pk.opcode_chips), None, max_steps)
+    seconds["preflight"] = time.time() - t0
+    if bounds != traced or steps != trace.n or not state["halted"]:
+        fail(f"shards: the AOT preflight plans {bounds} over {steps} steps, the trace {traced}")
+    log(f"shards: the AOT preflight plans {bounds} in {seconds['preflight']:.2f}s, as the "
+        f"trace's plan_boundaries does in {seconds['plan_boundaries']:.2f}s")
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spans.enable()
+    with prove_audit() as seen, sumcheck_calls() as calls:
+        reset_launches()
+        t0 = time.time()
+        sproof = shard.prove_shards(pk, vm, trace, max_steps, device=DEVICE)
+        sync()
+        seconds["prove_shards"] = time.time() - t0
+        counted = launches()
+    tree, span_report = spans.tree(), spans.report(min_seconds=0.01)
+    spans.disable()
+    checked = on_device(seen)
+    shapes = first_rounds(calls)
+    del calls
+    for w in shard_shapes():
+        if w not in shapes:
+            fail(f"shards: phase 2's sumcheck shape {w} is not among the sharded prove's first "
+                 f"rounds {shapes}")
+    log(f"shards: phase 2's {len(shard_shapes())} shard sumcheck shapes (shard-RAM class main, "
+        f"EC-sum quark) are among the {len(shapes)} distinct first rounds of the sharded prove")
+    peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
+    if sproof.n_shards != len(bounds) - 1:
+        fail(f"shards: {sproof.n_shards} shard proofs for the plan {bounds}")
+    seconds["plan"] = tree["plan-shards"]["total"]
+    seconds["shards"] = [tree[f"shard/{s}"]["total"] for s in range(sproof.n_shards)]
+    seconds["witgen"] = [tree["witgen"]["total"], tree["witgen"]["count"]]
+    log(f"shards: {sproof.n_shards} shards proved in {seconds['prove_shards']:.2f}s (plan "
+        f"{seconds['plan']:.2f}s, shard proves {[round(s, 2) for s in seconds['shards']]}); on "
+        f"{DEVICE}: {checked}")
+    t0 = time.time()
+    if shard.verify_shards(pk.vk, sproof) is not True:
+        fail("shards: verify_shards did not accept the honest sharded proof")
+    seconds["verify_shards"] = time.time() - t0
+    if not septic.is_infinity(*ec_sum_of(sproof)):
+        fail("shards: the cross-shard EC sum is not the identity")
+    log(f"shards: verify_shards accepts in {seconds['verify_shards']:.2f}s; the cross-shard EC "
+        "sum is the identity")
+    rejected = check_shard_rejections(pk.vk, sproof, "shards (2^20)")
+    idx = {m.name: ci for ci, m in enumerate(pk.metas)}
+    per_shard = []
+    for proof in sproof.proofs:
+        pv = np.asarray(proof.public_values, np.uint64)
+        per_shard.append({
+            "tokens": {c: int(proof.num_instances[idx[c]]) for c in SHARD_CHIPS},
+            "quark_rounds": {name: int(p.n_vars) for name, p in proof.ec_proofs.items()},
+            "active_chips": sum(1 for k in proof.num_instances if k),
+            "init_pc": int(pv[layout.PV_INIT_PC]), "end_pc": int(pv[layout.PV_END_PC]),
+            "proof_bytes": len(serialize.proof_to_bytes(proof, pv, pk.cfg, pk.params))})
+    line = {"program": f"fibonacci_vm({n})", "steps": trace.n, "device": DEVICE,
+            "max_steps_per_shard": max_steps, "bounds": bounds, "n_shards": sproof.n_shards,
+            "plan_route": "aot preflight (bounds) + trace (plan_shards)",
+            "seconds": seconds, "per_shard": per_shard, "max_memory_allocated": peak,
+            "launches": counted, "spans": {name: node["total"] for name, node in tree.items()},
+            "checked_on_device": checked, "rejected": rejected,
+            "sumcheck_first_rounds": len(shapes)}
+    return line, span_report, counted
 
 
 def main() -> int:
@@ -1224,13 +1488,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with phase("5 e2e"):
-        e2e_line, e2e_report, e2e_counted = run_e2e(
+        e2e_line, e2e_report, e2e_counted, (pk, vm, trace) = run_e2e(
             E2E_ITERS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams(), key_check=fixed_commit_check)
         t = time.time()
         e2e_line["golden"] = e2e_golden_check()
         e2e_line["seconds"]["golden_check"] = time.time() - t
+    torch.cuda.empty_cache()
 
-    with phase("6 report"):
+    with phase("6 continuations"):
+        t = time.time()
+        shard_golden = shard_golden_check()
+        golden_s = time.time() - t
+        shard_line, shard_report, shard_counted = run_continuations(pk, vm, trace, E2E_ITERS)
+        shard_line["golden"] = shard_golden
+        shard_line["seconds"]["golden_check"] = golden_s
+        del pk, vm, trace
+
+    with phase("7 report"):
         print(pcs_report, flush=True)
         for path, (counted, trees) in (("PCS slice (phase 3)", (pcs_launches, MAIN_PATH_TREES)),
                                        ("e2e keygen (phase 5)", e2e_counted["keygen"]),
@@ -1252,6 +1526,12 @@ def main() -> int:
         log(f"e2e: proof of {e2e_line['program']}: {e2e_line['proof_kib']:.1f} KiB; the "
             f"reference's, BENCH_r05.json: {REFERENCE_PROOF_KIB} KiB (an older run)")
         print(json.dumps({"e2e": e2e_line}), flush=True)
+        print(shard_report, flush=True)
+        log(f"shards: launches over the sharded prove: {shard_counted}")
+        for name, c in shard_counted.items():
+            if c <= 0:
+                fail(f"shards: kernel {name} was not launched in the sharded prove")
+        print(json.dumps({"shards": shard_line}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

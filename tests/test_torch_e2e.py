@@ -15,9 +15,12 @@ At ``fibonacci_vm(8)`` with the fast test config and params
 - the port's verifier rejects a changed public value, tower output, main
   zerocheck message, class-main eval and opening row, as the reference's
   tests do;
-- the decoder refuses a class outside the port's whitelist; the mock-proving
-  switch runs the MockProver before the commit; an EC tree with instances
-  names the module it needs; the checkpointed pipeline stops and resumes;
+- the decoder refuses a class outside the port's whitelist and takes the
+  EC-sum quark's and the sharded proof's; the mock-proving switch runs the
+  MockProver before the commit; an EC tree whose sum differs from the public
+  values is refused; ``verify``'s default flags are the standalone case (the
+  first and last shard, no tokens, one halt); the checkpointed pipeline
+  stops and resumes;
 - ``ceno_tpu_torch/golden/e2e_fibonacci.json`` names the setup that
   ``chip_smoke.py`` proves on the card.
 """
@@ -174,13 +177,23 @@ def test_launch_plan_matches_the_proof(runs):
 
 
 def test_decoder_whitelist():
-    # a class the reference's whitelist has and the port's leaves out
-    fake = dataclasses.make_dataclass("ShardedProof", [("shards", list)])
+    # a class the reference's whitelist has and the port's leaves out (M11)
+    fake = dataclasses.make_dataclass("AggProof", [("shards", list)])
     buf = io.BytesIO()
     buf.write(serialize.MAGIC)
     serialize._encode(buf, {"proof": fake([])})
-    with pytest.raises(serialize.ProofFormatError, match="ShardedProof"):
+    with pytest.raises(serialize.ProofFormatError, match="AggProof"):
         serialize.proof_from_bytes(buf.getvalue())
+    # the continuations' classes pass it
+    from ceno_tpu_torch.gkr.eccquark import EccQuarkProof
+    from ceno_tpu_torch.zkvm.shard import ShardedProof
+
+    ecp = EccQuarkProof(3, 2, np.zeros((2, 4, 4), np.uint64), np.zeros((49, 4), np.uint64),
+                        np.zeros((2, 7), np.uint64))
+    data = serialize.proof_to_bytes(ShardedProof([ecp]), np.zeros(1, np.uint64), None, None)
+    back, _, _, _ = serialize.proof_from_bytes(data)
+    assert type(back) is ShardedProof and back.n_shards == 1
+    assert type(back.proofs[0]) is EccQuarkProof and back.proofs[0].num_instances == 3
     with pytest.raises(serialize.ProofFormatError):
         serialize.proof_to_bytes({"x": torch.zeros(2)}, np.zeros(1, np.uint64), None, None)
 
@@ -217,12 +230,27 @@ def test_mock_proving_switch(runs, monkeypatch):
 
 
 def test_ec_tree_with_instances_names_the_missing_module(runs):
+    """An EC tree whose sum differs from the public values' RW sum is
+    refused by ``prove``, which names the chip."""
     _, port, _, _ = runs
     vm, trace, assigned = _witness(port)
-    bad = [dataclasses.replace(a, num_instances=1) if a.kind == "ec_tree_in" else a
-           for a in assigned]
-    with pytest.raises(NotImplementedError, match="M9"):
+    fsum = np.ones((2, 7), np.uint64)
+    bad = [dataclasses.replace(a, num_instances=1, ec_final_sum=fsum)
+           if a.kind == "ec_tree_in" else a for a in assigned]
+    with pytest.raises(scheme.ZKVMError, match="ec_tree_in: tree sum does not match"):
         scheme.prove(port.pk, vm, trace, port.public_values, assigned=bad, device="cpu")
+
+
+def test_default_verify_flags_are_the_standalone_case(runs):
+    _, port, _, _ = runs
+    vk, proof = port.pk.vk, port.proof
+    assert proof.ec_proofs == {}
+    assert scheme.verify(vk, proof, is_first=True, is_last=True, standalone=True,
+                         expect_halt=True) is True
+    # one shard of a sharded proof: the first and the last
+    assert scheme.verify(vk, proof, standalone=False) is True
+    with pytest.raises(scheme.ZKVMError, match="must be (in)?active in this shard"):
+        scheme.verify(vk, proof, is_last=False, standalone=False)
 
 
 def test_checkpoint_pipeline(runs):

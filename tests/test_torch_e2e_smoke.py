@@ -28,7 +28,7 @@ torch.set_num_threads(1)
 
 def test_e2e_phase_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    line, report, counted = chip_smoke.run_e2e(
+    line, report, counted, _ = chip_smoke.run_e2e(
         8, ZKVMConfig(shl_x_bits=6, mem_words_log=7),
         BasefoldParams(blowup_log=1, n_queries=4, stop_size=32))
     assert line["steps"] == 59 and line["chips"] == 93 and line["device"] == "cpu"

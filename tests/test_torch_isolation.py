@@ -1,6 +1,7 @@
 """The port stands alone: ceno_tpu_torch and chip_smoke import neither jax
 nor ceno_tpu, so they run where JAX is not installed, and the native
-emulator core builds and runs from the port's own copy of its source."""
+emulator core and its AOT preflight build and run from the port's own copy
+of its source."""
 
 import os
 import pkgutil
@@ -30,7 +31,7 @@ def _sources():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert len(names) >= 62, names
+    assert len(names) >= 65, names
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"       # any `import jax` raises ImportError
@@ -41,6 +42,7 @@ def test_every_module_imports_without_jax():
         "from ceno_tpu_torch.emulator import native, programs\n"
         "vm = programs.fibonacci_vm(3)\n"
         "assert native.run_trace_native(vm).n == 29 and vm.regs[10] == 2\n"
+        "assert native.run_preflight(programs.fibonacci_vm(3))[2] == 29\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "(m.split('.')[0] in ('jax', 'jaxlib', 'ceno_tpu'))]\n"
         "assert not bad, bad\n"

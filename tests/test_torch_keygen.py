@@ -11,7 +11,7 @@ the reference, exactly.
   fixed roots, and ``interop.key_summary`` of each side;
 - the chips, tables and helpers new to the port hold their copies' values:
   the septic curve arithmetic, the Poseidon2 gadget's witness, the
-  zero-token shard-RAM and EC-tree witnesses;
+  shard-RAM and EC-tree witnesses over no token and over seeded tokens;
 - ``emulator/elf.py``: ``write_elf`` -> ``load_elf`` gives the same bytes
   and the same Program.
 """
@@ -196,12 +196,28 @@ def test_poseidon2_gadget_and_zero_token_shard_witness():
 
 
 def test_ec_tree_with_tokens_names_the_missing_module():
-    chip = next(c for c in shard_ram.build_shard_chips() if c.kind.startswith("ec_tree"))
-    tok = shard_ram.Tokens.empty()
-    one = dataclasses.replace(tok, **{f.name: np.zeros(1, np.uint64)
-                                      for f in dataclasses.fields(tok)})
-    with pytest.raises(NotImplementedError, match="M9"):
-        shard_ram.assign_ec_tree(chip, one)
+    """Over seeded tokens, ``tokens_to_points``, the shard-RAM witness and
+    the EC tree (``gkr/eccquark.build_tree_witness``, both directions) equal
+    the reference's."""
+    rng = np.random.default_rng(11)
+    cols = {"is_reg": rng.integers(0, 2, 5), "addr": rng.integers(0, 1 << 20, 5),
+            "value": rng.integers(0, 1 << 32, 5), "shard": rng.integers(0, 3, 5),
+            "clk": rng.integers(0, 1 << 24, 5)}
+    tok = shard_ram.Tokens(**{k: v.astype(np.uint64) for k, v in cols.items()})
+    rtok = rshard.Tokens(**{k: v.astype(np.uint64) for k, v in cols.items()})
+    for got, want in zip(shard_ram.tokens_to_points(tok), rshard.tokens_to_points(rtok)):
+        np.testing.assert_array_equal(got, want)
+    for chip, rchip in zip(shard_ram.build_shard_chips(), rshard.build_shard_chips()):
+        if chip.kind.startswith("shard_ram"):
+            got = shard_ram.assign_shard_ram(chip, tok)
+            np.testing.assert_array_equal(got, rshard.assign_shard_ram(rchip, rtok))
+            assert got.shape == (len(chip.cb.wit_names), 8)
+        else:
+            (gw, gs), (ww, ws) = (shard_ram.assign_ec_tree(chip, tok),
+                                  rshard.assign_ec_tree(rchip, rtok))
+            np.testing.assert_array_equal(gw, ww)
+            np.testing.assert_array_equal(gs, ws)
+            assert gw.shape == (21, 16) and gs.any()
 
 
 ROM = 0x0800_0000

@@ -70,12 +70,14 @@ def _banks(rng, cb, ce, n, kind="random"):
 
 # (Cb, Ce, N, T, DB, DE, deg): the main path's kinds of sumcheck (towers: ext
 # only, DE 3, deg 3; class mains: DB up to 3, DE 1, deg up to 4; the jagged
-# and Basefold sumchecks: deg 2), every degree the kernel takes, no term
-# (all padding), one column only
+# and Basefold sumchecks: deg 2; the shard-RAM chips' class main: DB 7, DE 1,
+# deg 8), every degree the kernel takes, no term (all padding), one column
+# only
 SHAPES = [(0, 9, 64, 8, 0, 3, 3), (12, 2, 256, 40, 3, 1, 4), (5, 3, 32, 7, 1, 1, 2),
           (0, 4, 2, 1, 0, 2, 2), (3, 2, 16, 5, 2, 1, 0), (2, 3, 8, 6, 1, 2, 1),
           (2, 3, 8, 6, 2, 3, 5), (4, 1, 16, 3, 3, 3, 6), (1, 2, 8, 4, 4, 3, 7),
-          (2, 2, 4, 0, 1, 1, 2), (1, 0, 2, 2, 1, 0, 1), (6, 5, 2048, 9, 2, 3, 4)]
+          (2, 2, 4, 0, 1, 1, 2), (1, 0, 2, 2, 1, 0, 1), (6, 5, 2048, 9, 2, 3, 4),
+          (9, 1, 64, 12, 7, 1, 8)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -196,3 +198,43 @@ def test_limits_raise(lib):
     assert rc == 1
     assert lib.sc_duplex(base.data_ptr(), None, 0, None, None, 0, 0, p2.RATE + 1, 0, 0,
                          None) == 1
+
+
+def test_round_evals_take_the_ec_quark_terms(lib):
+    """K6a over the EC-sum quark's zerocheck (``gkr/eccquark.py``): 455 terms
+    over 49 base and 3 ext columns at degree 3, whose 14 export terms have
+    no base factor and index the base bank's ones column; the first round
+    (mixed banks) and, after one fold, an ext-only round."""
+    from ceno_tpu_torch.fields import septic as S
+    from ceno_tpu_torch.gkr import eccquark as Q
+    from ceno_tpu_torch.sumcheck import prover as sc_prover
+
+    rng = np.random.default_rng(10)
+    xs, ys = [], []
+    while len(xs) < 5:
+        trial = rng.integers(0, P, size=(8, 7), dtype=np.uint64)
+        y, ok = S.from_x(trial)
+        xs += list(trial[ok])
+        ys += list(y[ok])
+    x, y, s, final = Q.build_tree_witness(np.stack(xs[:5]), np.stack(ys[:5]), 16)
+    views = [Q._views(c) for c in (x, y, s)]
+    (x0, x1, x3), (y0, y1, y3), (_, _, s3) = views
+    base_np = np.concatenate([s3, x0, y0, x1, y1, x3, y3])          # (49, 8)
+    alphas = rng.integers(1, P, size=(Q.DEG * 7, 4), dtype=np.uint64)
+    terms = Q._build_terms(alphas, final)
+    bidx_np, eidx_np, scal_np, deg = sc_prover.compile_terms(terms, 49, 3)
+    live = np.nonzero(scal_np.any(axis=1))[0]
+    assert deg == 3 and (bidx_np[[i for i, t in enumerate(terms) if not t.bidx]] == 49).all()
+    base, ext = T.make_banks(list(bb.to_device(base_np, "cpu")),
+                             [_words(rng, (4, 3, 8))], 8)
+    bidx = torch.from_numpy(bidx_np[live])
+    eidx = torch.from_numpy(eidx_np[live])
+    scalars = bb.to_device(scal_np[live].T, "cpu")
+    out = torch.empty((deg + 1, 4), dtype=bb.DTYPE)
+    T.launch_round_evals(lib, None, base, ext, bidx, eidx, scalars, deg, out)
+    assert torch.equal(out, T.round_evals_plain(base, ext, bidx, eidx, scalars, deg=deg))
+    merged = T.fold_banks_plain(base, ext, _words(rng, (4,)))
+    midx = torch.from_numpy(T.merge_indices(bidx_np, eidx_np, 49, 3)[live])
+    T.launch_round_evals(lib, None, None, merged, torch.zeros((len(live), 0), dtype=torch.int32),
+                         midx, scalars, deg, out)
+    assert torch.equal(out, T.round_evals_ext_plain(merged, midx, scalars, deg=deg))

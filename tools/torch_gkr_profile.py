@@ -2,20 +2,24 @@
 """Where the card's time goes in chip_smoke's GKR phase or in a whole
 prove, by stage and by operation, from a torch.profiler trace.
 
-    python3 tools/torch_gkr_profile.py [--iters N] [--e2e]
+    python3 tools/torch_gkr_profile.py [--iters N] [--e2e | --shards]
 
 Runs ``fibonacci_vm(N)`` (default chip_smoke.GKR_ITERS, the full width) on
-the native core. Without ``--e2e`` it assigns the opcode chips and proves
+the native core. Without an option it assigns the opcode chips and proves
 the GKR stages (chip_smoke phase 4); with ``--e2e`` it makes the key
 (``ZKVMConfig(shl_x_bits=10)``, ``BasefoldParams()``, chip_smoke phase 5)
-and runs the whole ``zkvm/scheme.prove``. Either way it proves once
-unprofiled (warm-up), then once more under ``torch.profiler`` with every
-stage and every operation family wrapped in a ``record_function`` range:
+and runs the whole ``zkvm/scheme.prove``; with ``--shards`` it makes the
+same key and runs ``zkvm/shard.prove_shards`` over two shards, pipelined
+(chip_smoke phase 6). Either way it proves once unprofiled (warm-up), then
+once more under ``torch.profiler`` with every stage and every operation
+family wrapped in a ``record_function`` range:
 
   stages:     records (``build_tower_inputs``), towers (``prove_group_towers``),
               class_main (``prove_class_main``); with ``--e2e`` also witgen
               (``generate_witness``), commit (``basefold.commit``) and
-              openings (``jagged.open_jagged``);
+              openings (``jagged.open_jagged``); with ``--shards`` these and
+              plan (``plan_shards``) and ec_sum (``prove_ec_sum``), witgen
+              then running on the pipeline's host thread;
   operations: record_eval (the record builder, K9), tower_layers
               (``product_layers`` / ``logup_layers``, K8's trees),
               round_evals and folds (the sumcheck term kernels K6a and
@@ -60,18 +64,21 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 import chip_smoke as cs  # noqa: E402
 from ceno_tpu_torch.fields import babybear as bb  # noqa: E402
 from ceno_tpu_torch.gkr import chip as gkr_chip  # noqa: E402
+from ceno_tpu_torch.gkr import eccquark  # noqa: E402
 from ceno_tpu_torch.gkr import tower  # noqa: E402
 from ceno_tpu_torch.hash import poseidon2_merkle as pm  # noqa: E402
 from ceno_tpu_torch.mle import ops  # noqa: E402
 from ceno_tpu_torch.pcs import basefold, jagged, ntt  # noqa: E402
 from ceno_tpu_torch.sumcheck import fused, terms  # noqa: E402
-from ceno_tpu_torch.zkvm import e2e, scheme  # noqa: E402
+from ceno_tpu_torch.zkvm import e2e, scheme, shard, witgen  # noqa: E402
 from ceno_tpu_torch.zkvm.tables import ZKVMConfig  # noqa: E402
 
 STAGES = {"records": (gkr_chip, "build_tower_inputs"), "towers": (gkr_chip, "prove_group_towers"),
           "class_main": (gkr_chip, "prove_class_main")}
 E2E_STAGES = {"witgen": (scheme, "generate_witness"), "commit": (basefold, "commit"),
               **STAGES, "openings": (jagged, "open_jagged")}
+SHARD_STAGES = {**E2E_STAGES, "witgen": (witgen, "generate_witness"),
+                "plan": (shard, "plan_shards"), "ec_sum": (eccquark, "prove_ec_sum")}
 OPS = {"record_eval": [(gkr_chip, "build_records")],
        "tower_layers": [(tower, "product_layers"), (tower, "logup_layers")],
        "round_evals": [(terms, "round_evals")],
@@ -213,14 +220,17 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=cs.GKR_ITERS)
-    ap.add_argument("--e2e", action="store_true", help="profile the whole zkvm/scheme.prove")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--e2e", action="store_true", help="profile the whole zkvm/scheme.prove")
+    mode.add_argument("--shards", action="store_true",
+                      help="profile zkvm/shard.prove_shards over two shards, pipelined")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_gkr_profile: no CUDA device", file=sys.stderr)
         return 2
     print(cs.card_line(), flush=True)
     cs.DEVICE = "cuda"
-    if args.e2e:
+    if args.e2e or args.shards:
         t0 = time.time()
         vm = cs.programs.fibonacci_vm(args.iters)
         trace = cs.native.run_trace_native(vm)
@@ -228,10 +238,17 @@ def main() -> int:
         pk = scheme.keygen(vm.program, cfg, basefold.BasefoldParams(), device="cuda")
         pv = e2e.public_values_from_vm(vm, cfg)
         seconds = {"emulate_and_keygen": time.time() - t0}
-        steps, stages, key = trace.n, E2E_STAGES, "e2e_profile"
+        steps = trace.n
+        if args.shards:
+            stages, key = SHARD_STAGES, "shards_profile"
 
-        def prove():
-            scheme.prove(pk, vm, trace, pv, device="cuda")
+            def prove():
+                shard.prove_shards(pk, vm, trace, cs.max_steps_per_shard(trace.n), device="cuda")
+        else:
+            stages, key = E2E_STAGES, "e2e_profile"
+
+            def prove():
+                scheme.prove(pk, vm, trace, pv, device="cuda")
     else:
         vm, assigned, seconds = cs.emulate_and_assign(args.iters)
         pv = cs.public_values(vm)
