@@ -23,6 +23,10 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      round of tower level 21 of the 2^22 group, with the fused tower's own
      term table, and of the 2^19 and 2^18 class mains; K5/K7 from every
      pos, sq_pos 0, 4 or 8, absorbed or not, and timed over a round's step;
+     K6a and K6b also at the shard-RAM class main and the EC-sum quark
+     (phase 6 runs them) and at the precompile class mains
+     (``PRECOMPILE_CLASS_MAINS``: the keccak core's 2^15 class, the keccak
+     ecall's 2^10 class, the secp guest's 2-row class; phase 7 runs them);
      with ptxas's registers and spills for each;
   3. the PCS slice end to end with the default BasefoldParams: commit, open
      and verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack,
@@ -76,7 +80,25 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      each kernel's at least one); ``verify_shards`` must accept, the
      cross-shard EC sum be the identity, and the same tampered proofs be
      rejected;
-  7. report: phase 3's span tree; the launch counts of phase 3 and of
+  7. precompiles and guest I/O: first the golden gate, the proofs of four
+     guests at ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and
+     ``BasefoldParams()`` (``examples/precompile_torture.s``: keccak-f, SHA
+     extend, uint256 mul, PUB_IO_COMMIT; ``examples/hashing.s`` with its hints
+     written by ``CenoStdin``; ``tests/test_curves.py``'s secp guest, run by
+     the Python interpreter as the native core has no curve calls;
+     ``tests/test_messages.py``'s println guest, its messages read back with
+     ``read_all_messages``): each must have the SHA-256 and length of the
+     reference's (``ceno_tpu_torch/golden/precompile_guests.json``) and
+     verify. Then the precompile path at full size: KECCAK_LOOP_SRC with
+     1,024 permutations (N from a ``CenoStdin`` hints buffer) on the native
+     core, its committed words against keccak-f applied 1,024 times on the
+     host, keygen at bench.py's config and ``BasefoldParams()``, one prove
+     with spans, the device audit and the launch counts (reset just before,
+     read just after, each kernel's at least one), verify, and a changed
+     main-zerocheck message of the keccak core's class and a changed public
+     value rejected; the secp guest's and the keccak loop's proves must run
+     phase 2's precompile class mains;
+  8. report: phase 3's span tree; the launch counts of phase 3 and of
      phase 5's keygen and timed prove, each equal to its trees' launch
      plans (K1 once a tree, K2 as ``merkle_plan`` plans it); a
      ``{"kernel_shapes": ...}`` line with every shape of phase 2; phase 4's
@@ -86,7 +108,10 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      timed prove, each kernel's at least one); phase 6's span tree, its
      launch counts and its ``{"shards": {...}}`` line (plan, per-shard,
      pipelined and stitch-verify seconds, tokens and quark rounds per shard,
-     peak device memory); the card line and, last,
+     peak device memory); phase 7's span tree and its ``{"precompiles":
+     {...}}`` line (steps, rows per precompile chip, seconds per stage and
+     witgen step, proof bytes, peak device memory, launches, the golden
+     guests); the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
@@ -112,8 +137,9 @@ import numpy as np
 import torch
 
 from ceno_tpu_torch import interop
-from ceno_tpu_torch.emulator import native, programs
-from ceno_tpu_torch.emulator.state import CYCLE_START
+from ceno_tpu_torch.emulator import keccak, native, programs
+from ceno_tpu_torch.emulator.rv32im import assemble
+from ceno_tpu_torch.emulator.state import CYCLE_START, Platform, VMState, make_program
 from ceno_tpu_torch.fields import babybear as bb
 from ceno_tpu_torch.fields import septic
 from ceno_tpu_torch.gkr import chip as gkr_chip
@@ -123,6 +149,7 @@ from ceno_tpu_torch.gkr.chip import ChipError
 from ceno_tpu_torch.gkr.tower import TowerError
 from ceno_tpu_torch.hash import poseidon2_merkle as pm
 from ceno_tpu_torch.hash.transcript import Transcript
+from ceno_tpu_torch.host import CenoStdin, read_all_messages
 from ceno_tpu_torch.mle import ops
 from ceno_tpu_torch.pcs import basefold as bf
 from ceno_tpu_torch.pcs import jagged as jg
@@ -131,7 +158,7 @@ from ceno_tpu_torch.sumcheck import prover as sc_prover
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 from ceno_tpu_torch.utils import cuda_build, spans
 from ceno_tpu_torch.zkvm import e2e, layout, scheme, serialize, shard, witgen
-from ceno_tpu_torch.zkvm.chips.opcodes import build_opcode_chips
+from ceno_tpu_torch.zkvm.chips.opcodes import TraceView, build_opcode_chips
 from ceno_tpu_torch.zkvm.tables import ZKVMConfig
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -176,9 +203,30 @@ CLASS_MAINS = [  # the 2^19 class (addi), and the 2^18 class (add, beq, jal) of 
 # the 2^9 class main of a shard-RAM chip alone (288 tokens; its Poseidon2
 # columns make it the one main of degree 8) and of the EC-sum quark over a
 # tree of 2^10 rows (9 rounds), with the quark's own term table.
-SHARD_CLASS_MAIN = {"log_n": 9, "base": 315, "ext": 1, "terms": 3289, "db": 7, "de": 1,
-                    "deg": 8}
+SHARD_CLASS_MAIN = {"what": "shard-RAM", "log_n": 9, "base": 315, "ext": 1, "terms": 3289,
+                    "db": 7, "de": 1, "deg": 8}
 QUARK_LOG_N = 9
+# The precompile path's class mains (phase 7 checks that its proves run
+# them): the first round of the keccak core chip's 2^15 class alone (1,024
+# permutations, 24 rows each: 1,274 witness columns, 1,201 lookups) and of
+# the 2^10 class of its ecall chip (1,210 terms) with bne (1,276 terms, 1,274
+# with a nonzero scalar), both in phase 7b's keccak loop; and of the 2-row
+# class of phase 7a's secp guest, where secp256k1_add's 14,196 terms sit
+# beside the other curve chips' (lw, halt, secp256k1_add, _double,
+# _decompress, _invert, global: 39,427 terms, 39,422 with a nonzero scalar).
+# "terms" counts the live terms, which are what K6a runs.
+KECCAK_CLASS_MAINS = [
+    {"what": "keccak core", "chips": ("keccak_core",), "log_n": 15, "base": 1274, "ext": 1,
+     "terms": 5376, "db": 2, "de": 1, "deg": 3},
+    {"what": "keccak ecall", "chips": ("bne", "keccak_ecall"), "log_n": 10, "base": 386,
+     "ext": 2, "terms": 1274, "db": 3, "de": 1, "deg": 4},
+]
+SECP_CLASS_MAIN = {"what": "secp guest", "chips": ("lw", "halt", "secp256k1_add",
+                                                   "secp256k1_double", "secp256k1_decompress",
+                                                   "secp256k1_invert", "global"),
+                   "log_n": 1, "base": 3094, "ext": 7, "terms": 39422, "db": 2, "de": 1,
+                   "deg": 3}
+PRECOMPILE_CLASS_MAINS = KECCAK_CLASS_MAINS + [SECP_CLASS_MAIN]
 MULS_PER_PRODUCT = 3  # 32-bit multiplies of one Montgomery product
 EXT_PRODUCTS = 16     # base products of one ext4 product (the x^4 = 11 wrap adds none)
 
@@ -437,11 +485,11 @@ def main_path_sumchecks(rng) -> list:
     dev_idx = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)  # noqa: E731
     out.append((f"tower level {TOWER_LOG_N} of the 2^{TOWER_LOG_N + 1} group", base, ext,
                 dev_idx(bidx), dev_idx(eidx), pows[:, torch.from_numpy(alpha_idx).to(DEVICE)], deg))
-    for cm in CLASS_MAINS + [SHARD_CLASS_MAIN]:
+    for cm in CLASS_MAINS + [SHARD_CLASS_MAIN] + PRECOMPILE_CLASS_MAINS:
         base, ext = random_banks(rng, cm["base"], cm["ext"], 1 << cm["log_n"])
         t = cm["terms"]
-        what = "shard-RAM " if cm is SHARD_CLASS_MAIN else ""
-        out.append((f"{what}2^{cm['log_n']} class main, first round", base, ext,
+        what = " ".join(filter(None, (cm.get("what"), f"2^{cm['log_n']} class main")))
+        out.append((f"{what}, first round", base, ext,
                     dev_idx(rng.integers(0, cm["base"] + 1, size=(t, cm["db"]))),
                     dev_idx(rng.integers(0, cm["ext"] + 1, size=(t, cm["de"]))),
                     bb.to_device(rng.integers(1, bb.P, size=(4, t), dtype=np.uint64), DEVICE),
@@ -912,16 +960,32 @@ def first_rounds(calls) -> list:
     return out
 
 
+def main_shape(cm: dict) -> dict:
+    """A class main's first round (CLASS_MAINS' form) as :func:`first_rounds`
+    gives it: its banks with their sentinel columns, every term live."""
+    n = 1 << cm["log_n"]
+    return {"base": [cm["base"] + 1, n], "ext": [4, cm["ext"] + 1, n], "terms": cm["terms"],
+            "db": cm["db"], "de": cm["de"], "deg": cm["deg"], "live": cm["terms"]}
+
+
 def shard_shapes() -> list:
     """Phase 2's sumcheck shapes of the sharded proof only (SHARD_CLASS_MAIN,
     the quark), as :func:`first_rounds` gives them."""
-    cm = SHARD_CLASS_MAIN
-    n = 1 << cm["log_n"]
     t = len(eccquark._term_schedule()[0])  # 455, every one live
-    return [{"base": [cm["base"] + 1, n], "ext": [4, cm["ext"] + 1, n], "terms": cm["terms"],
-             "db": cm["db"], "de": cm["de"], "deg": cm["deg"], "live": cm["terms"]},
+    return [main_shape(SHARD_CLASS_MAIN),
             {"base": [7 * eccquark.DEG + 1, 1 << QUARK_LOG_N], "ext": [4, 4, 1 << QUARK_LOG_N],
              "terms": t, "db": 2, "de": 1, "deg": 3, "live": t}]
+
+
+def check_shapes_ran(want: list, shapes: list, what: str) -> None:
+    """Each of phase 2's sumcheck shapes ``want`` is among the first rounds
+    ``shapes`` that ``what`` ran."""
+    for w in want:
+        if w not in shapes:
+            fail(f"phase 2's sumcheck shape {w} is not among the first rounds of the {what}: "
+                 f"{shapes}")
+    log(f"phase 2's {len(want)} sumcheck shapes are among the {len(shapes)} distinct first "
+        f"rounds of the {what}")
 
 
 def check_main_path_shapes(shapes: list) -> None:
@@ -932,16 +996,7 @@ def check_main_path_shapes(shapes: list) -> None:
     want = [{"base": [1, n], "ext": [4, s_e + 2, n],
              "terms": tower._level_static(n_prod, n_logup)[0].shape[0], "db": 0, "de": 3,
              "deg": 3, "live": n_prod + 3 * n_logup}]
-    for cm in CLASS_MAINS:
-        n = 1 << cm["log_n"]
-        want.append({"base": [cm["base"] + 1, n], "ext": [4, cm["ext"] + 1, n],
-                     "terms": cm["terms"], "db": cm["db"], "de": cm["de"], "deg": cm["deg"],
-                     "live": cm["terms"]})
-    for w in want:
-        if w not in shapes:
-            fail(f"phase 2's sumcheck shape {w} is not among the GKR stages' first rounds {shapes}")
-    log(f"GKR: phase 2's {len(want)} sumcheck shapes are among the {len(shapes)} distinct first "
-        "rounds the GKR stages ran")
+    check_shapes_ran(want + [main_shape(cm) for cm in CLASS_MAINS], shapes, "GKR stages")
 
 
 SWITCHES = ("CENO_TPU_TORCH_FUSED", "CENO_TPU_TORCH_FUSED_TOWER")
@@ -1391,12 +1446,7 @@ def run_continuations(pk, vm, trace, n: int) -> tuple:
     checked = on_device(seen)
     shapes = first_rounds(calls)
     del calls
-    for w in shard_shapes():
-        if w not in shapes:
-            fail(f"shards: phase 2's sumcheck shape {w} is not among the sharded prove's first "
-                 f"rounds {shapes}")
-    log(f"shards: phase 2's {len(shard_shapes())} shard sumcheck shapes (shard-RAM class main, "
-        f"EC-sum quark) are among the {len(shapes)} distinct first rounds of the sharded prove")
+    check_shapes_ran(shard_shapes(), shapes, "sharded prove (shard-RAM class main, EC-sum quark)")
     peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
     if sproof.n_shards != len(bounds) - 1:
         fail(f"shards: {sproof.n_shards} shard proofs for the plan {bounds}")
@@ -1433,6 +1483,340 @@ def run_continuations(pk, vm, trace, n: int) -> tuple:
             "checked_on_device": checked, "rejected": rejected,
             "sumcheck_first_rounds": len(shapes)}
     return line, span_report, counted
+
+
+# -- phase 7: precompiles and guest I/O ------------------------------------------
+
+ROM = Platform.rom_start
+# the setup of the reference's committed precompile proof digests
+# (tools/torch_precompile_golden.py): the config of the reference's precompile
+# tests, each guest at their params ("fast") and at BasefoldParams() ("default")
+PRECOMPILE_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "precompile_guests.json")
+PRECOMPILE_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
+FAST_PARAMS = {"blowup_log": 1, "n_queries": 4, "stop_size": 32}
+PRECOMPILE_GUESTS = ("precompile_torture", "hashing", "secp", "println")
+# the hints of examples/hashing.s: it reads word 0 of the buffer as n (here
+# the header's data offset, 12) and seeds the keccak state from words 1..n
+HASHING_HINT = [0xDEAD, 0xBEEF, 0x1234, 0x5678, 0x9ABC, 0xDEF0, 7, 8, 9]
+# tests/test_messages.py's println guest: "hi!" and "ceno" to the info-out region
+PRINTLN_SRC = f"""
+    li t1, {Platform.info_start}
+    li t2, 3
+    sw t2, 0(t1)
+    li t2, {int.from_bytes(b"hi!" + bytes(1), "little")}
+    sw t2, 4(t1)
+    li t2, 4
+    sw t2, 8(t1)
+    li t2, {int.from_bytes(b"ceno", "little")}
+    sw t2, 12(t1)
+    li a0, 0
+    li t0, 0
+    ecall
+"""
+PRINTLN_MESSAGES = [b"hi!", b"ceno"]
+# secp256k1's generator (tests/test_curves.py's G1)
+SECP_G = (55066263022277343669578718895168534326250603453777594175500187360389116729240,
+          32670510020758816978083085130507043184471273380659243275938904335757337482424)
+SECP_SCALAR = 0xDEADBEEF12345
+
+# The precompile path at full size: N KECCAK_PERMUTE calls on one 50-word
+# state. The guest reads N, the first item of a CenoStdin hints buffer, zeroes
+# the state, permutes it N times, commits its first 8 words and halts; every
+# syscall it makes is in the native core.
+KECCAK_LOOP_SRC = """
+    li s0, {hints}
+    lw t1, 0(s0)
+    add t1, t1, s0
+    lw s2, 0(t1)
+    li s1, {heap}
+    li t1, 0
+    mv t2, s1
+    li t3, 50
+zero:
+    sw zero, 0(t2)
+    addi t2, t2, 4
+    addi t1, t1, 1
+    blt t1, t3, zero
+    li t0, {keccak}
+    mv a0, s1
+    beq s2, zero, done
+permute:
+    ecall
+    addi s2, s2, -1
+    bne s2, zero, permute
+done:
+    li t0, {commit}
+    mv a0, s1
+    ecall
+    li t0, 0
+    li a0, 0
+    ecall
+"""
+KECCAK_PERMS = 1024
+PRECOMPILE_CHIPS = ("keccak_ecall", "keccak_core", "pubio_commit", "sha_extend", "uint256_mul",
+                    "secp256k1_add", "secp256k1_double", "secp256k1_decompress",
+                    "secp256k1_invert")
+
+
+def _store_words(value: int, base_reg: str, off: int) -> str:
+    """Assembly that stores ``value``'s 8 little-endian words at off(base_reg)."""
+    return "\n".join(f"    li t5, {(value >> (32 * i)) & 0xFFFFFFFF}\n"
+                     f"    sw t5, {off + 4 * i}({base_reg})" for i in range(8))
+
+
+def secp_guest_src() -> str:
+    """tests/test_curves.py's SECP_GUEST: double G, add G, invert a scalar,
+    decompress x(G) (the curve calls, which the native core does not run)."""
+    heap, (gx, gy) = Platform.heap_start, SECP_G
+    return f"""
+    li t1, {heap}
+{_store_words(gx, "t1", 0)}
+{_store_words(gy, "t1", 32)}
+{_store_words(gx, "t1", 64)}
+{_store_words(gy, "t1", 96)}
+{_store_words(SECP_SCALAR, "t1", 128)}
+{_store_words(gx, "t1", 160)}
+    li t0, {Platform.ECALL_SECP256K1_DOUBLE}
+    mv a0, t1
+    ecall
+    li t0, {Platform.ECALL_SECP256K1_ADD}
+    addi a1, t1, 64
+    ecall
+    li t0, {Platform.ECALL_SECP256K1_SCALAR_INVERT}
+    addi a0, t1, 128
+    ecall
+    li t0, {Platform.ECALL_SECP256K1_DECOMPRESS}
+    addi a0, t1, 160
+    li a1, {gy & 1}
+    ecall
+    lw a0, 0(t1)
+    li t0, 0
+    ecall
+"""
+
+
+def precompile_guest(name: str) -> tuple:
+    """(assembly source, hint words, runs on the native core) of one golden
+    guest of PRECOMPILE_GUESTS."""
+    heap = Platform.heap_start
+    if name == "precompile_torture":  # as tests/test_precompile_torture.py formats it
+        with open(os.path.join(ROOT, "examples", "precompile_torture.s")) as f:
+            src = f.read().format(heap=heap, w_base=heap + 512, x_base=heap + 1024,
+                                  keccak=Platform.ECALL_KECCAK,
+                                  sha_extend=Platform.ECALL_SHA_EXTEND,
+                                  uint256=Platform.ECALL_UINT256_MUL,
+                                  commit=Platform.ECALL_COMMIT)
+        return src, [], True
+    if name == "hashing":
+        with open(os.path.join(ROOT, "examples", "hashing.s")) as f:
+            src = f.read().format(hints=Platform.hints_start, heap=heap,
+                                  keccak=Platform.ECALL_KECCAK, commit=Platform.ECALL_COMMIT)
+        return src, CenoStdin().write(HASHING_HINT).to_words(), True
+    if name == "secp":
+        return secp_guest_src(), [], False
+    if name == "println":
+        return PRINTLN_SRC, [], True
+    raise ValueError(f"no precompile guest {name!r}")
+
+
+def guest_vm(src: str, hints: list) -> VMState:
+    """The guest's VM at ROM with ``hints`` at the hints window."""
+    vm = VMState(make_program(assemble(src, ROM), ROM), ROM)
+    for i, w in enumerate(hints):
+        vm.init_memory(Platform.hints_start + 4 * i, w)
+    return vm
+
+
+def program_digest(vm) -> str:
+    """SHA-256 of a guest's program words and initial memory (its hints)."""
+    h = hashlib.sha256()
+    for items in (vm.program, vm.mem_init):
+        h.update(np.array(sorted(items.items()), np.uint64).tobytes())
+    return h.hexdigest()
+
+
+def pubio_words(pv: np.ndarray) -> list:
+    """The committed digest's 8 words from the public values' u16 limbs."""
+    base = layout.PV_PUBIO_DIGEST
+    return [int(pv[base + 2 * i]) | int(pv[base + 2 * i + 1]) << 16 for i in range(8)]
+
+
+def keccak_digest(state_words: list, perms: int) -> list:
+    """The first 8 words of keccak-f applied ``perms`` times on the host."""
+    lanes = keccak.words_to_lanes(list(state_words) + [0] * (50 - len(state_words)))
+    for _ in range(perms):
+        lanes = keccak.keccakf(lanes)
+    return keccak.lanes_to_words(lanes)[:8]
+
+
+def proof_digests(data: bytes, pk) -> dict:
+    return {"proof_sha256": hashlib.sha256(data).hexdigest(), "proof_bytes": len(data),
+            "vk_digest_sha256": hashlib.sha256(pk.vk.digest_elems().tobytes()).hexdigest()}
+
+
+def prove_guest(name: str, params) -> tuple:
+    """keygen -> prove of one golden guest at PRECOMPILE_CFG on DEVICE: the
+    native core where it runs the guest (never a fallback), else the Python
+    interpreter's records. Returns (vm, pk, proof, proof bytes, the prove's
+    first sumcheck rounds)."""
+    src, hints, native_core = precompile_guest(name)
+    vm = guest_vm(src, hints)
+    trace = native.run_trace_native(vm) if native_core else TraceView.from_records(vm.run())
+    if not vm.halted:
+        fail(f"precompiles: the {name} guest did not halt")
+    cfg = ZKVMConfig(**PRECOMPILE_CFG)
+    pv = e2e.public_values_from_vm(vm, cfg)
+    pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
+    with sumcheck_calls() as calls:
+        proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+        shapes = first_rounds(calls)
+    return vm, pk, proof, serialize.proof_to_bytes(proof, pv, pk.cfg, pk.params), shapes
+
+
+def guest_output_check(name: str, vm, pv: np.ndarray) -> None:
+    """What the I/O guests give back: the hashing guest's committed digest
+    is keccak-f of its hinted state; the println guest's messages read back."""
+    if name == "hashing":
+        _, hints, _ = precompile_guest(name)
+        want = keccak_digest(hints[1:hints[0] + 1], 1)
+        if pubio_words(pv) != want or vm.pubio_digest != want:
+            fail(f"precompiles: the hashing guest committed {vm.pubio_digest}, keccak-f gives "
+                 f"{want}")
+    elif name == "println":
+        got = read_all_messages(vm)
+        if got != PRINTLN_MESSAGES or int(pv[layout.PV_INFO_WORDS]) != 4:
+            fail(f"precompiles: the println guest's messages read back as {got}")
+
+
+def precompile_golden_check() -> dict:
+    """Phase 7a: the port's proof of each guest of PRECOMPILE_GUESTS at
+    BasefoldParams() must have the SHA-256 and length of the reference's
+    (PRECOMPILE_GOLDEN), and verify; the I/O guests' outputs must read back.
+    Returns the digests, seconds and the secp guest's first sumcheck rounds."""
+    with open(PRECOMPILE_GOLDEN) as f:
+        want = json.load(f)
+    params = bf.BasefoldParams()
+    setup = {"cfg": PRECOMPILE_CFG, "params": {"fast": dataclasses.asdict(
+        bf.BasefoldParams(**FAST_PARAMS)), "default": dataclasses.asdict(params)}}
+    if {k: want[k] for k in setup} != setup or tuple(want["guests"]) != PRECOMPILE_GUESTS:
+        fail(f"{os.path.relpath(PRECOMPILE_GOLDEN, ROOT)} names {want}, chip_smoke proves {setup}")
+    out = {}
+    for name in PRECOMPILE_GUESTS:
+        t0 = time.time()
+        vm, pk, proof, data, shapes = prove_guest(name, params)
+        ref = want["guests"][name]
+        got = {"program_sha256": program_digest(vm), **proof_digests(data, pk)}
+        if got != {"program_sha256": ref["program_sha256"], **ref["default"]}:
+            fail(f"precompiles: the proof of the {name} guest differs from the reference's: "
+                 f"{got} against {ref}")
+        if scheme.verify(pk.vk, proof) is not True:
+            fail(f"precompiles: the proof of the {name} guest was not accepted")
+        guest_output_check(name, vm, proof.public_values)
+        out[name] = {**got, "seconds": time.time() - t0,
+                     "active_chips": sum(1 for k in proof.num_instances if k)}
+        if name == "secp":
+            out[name]["sumcheck_shapes"] = shapes
+        log(f"precompiles: the {name} guest's proof at BasefoldParams() equals the reference's "
+            f"({len(data)} bytes, sha256 {got['proof_sha256'][:16]}...) and verifies "
+            f"({out[name]['seconds']:.2f}s)")
+    return out
+
+
+def keccak_loop_vm(n: int) -> VMState:
+    """KECCAK_LOOP_SRC with N = ``n`` written by CenoStdin into the hints."""
+    src = KECCAK_LOOP_SRC.format(hints=Platform.hints_start, heap=Platform.heap_start,
+                                 keccak=Platform.ECALL_KECCAK, commit=Platform.ECALL_COMMIT)
+    return guest_vm(src, CenoStdin().write(n).to_words())
+
+
+def precompile_tampered(proof, h_core: int) -> list:
+    """(what, proof) pairs the verifier must reject: one main-zerocheck
+    message of the keccak core's class, and a public value (a word of the
+    committed digest)."""
+    out = []
+    bad = copy.deepcopy(proof)
+    bump(bad.class_main[h_core].main_msgs, (0, 0, 0))
+    out.append(("keccak_core class-main message", bad))
+    bad = copy.deepcopy(proof)
+    bump(bad.public_values, layout.PV_PUBIO_DIGEST)
+    out.append(("public value (pubio digest)", bad))
+    return out
+
+
+def run_keccak_loop(n: int, cfg, params) -> tuple:
+    """Phase 7b: the keccak guest of ``n`` permutations as a user proves it:
+    the native core (no fallback), the committed words against keccak-f on
+    the host, keygen, one prove with spans, the device audit and the launch
+    counts (reset just before, read just after), verify, then the tampered
+    proofs. Returns (the ``precompiles`` line, the span report, the
+    launches, the first sumcheck rounds)."""
+    seconds = {}
+    vm = keccak_loop_vm(n)
+    t0 = time.time()
+    trace = native.run_trace_native(vm)
+    seconds["emulate"] = time.time() - t0
+    want = keccak_digest([], n)
+    if not vm.halted or vm.exit_code != 0 or vm.pubio_digest != want:
+        fail(f"keccak loop({n}): halted {vm.halted}, exit {vm.exit_code}, committed "
+             f"{vm.pubio_digest}; keccak-f {n} times gives {want}")
+    pv = e2e.public_values_from_vm(vm, cfg)
+    if pubio_words(pv) != want:
+        fail(f"keccak loop({n}): the public values carry {pubio_words(pv)}, not {want}")
+    t0 = time.time()
+    pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
+    sync()
+    seconds["keygen"] = time.time() - t0
+    log(f"precompiles: keccak loop({n}), {trace.n} steps emulated in {seconds['emulate']:.2f}s, "
+        f"its {n} digests equal keccak-f on the host; keygen in {seconds['keygen']:.2f}s")
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spans.enable()
+    with prove_audit() as seen, sumcheck_calls() as calls:
+        reset_launches()
+        t0 = time.time()
+        proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+        sync()
+        seconds["prove"] = time.time() - t0
+        counted = launches()
+        shapes = first_rounds(calls)
+    tree, span_report = spans.tree(), spans.report(min_seconds=0.01)
+    spans.disable()
+    checked = on_device(seen)
+    peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
+    data = serialize.proof_to_bytes(proof, pv, pk.cfg, pk.params)
+    log(f"precompiles: proved in {seconds['prove']:.2f}s, {len(data)} bytes; on {DEVICE}: "
+        f"{checked}; launches {counted}")
+    t0 = time.time()
+    if scheme.verify(pk.vk, proof) is not True:
+        fail("precompiles: the verifier did not accept the keccak loop's proof")
+    seconds["verify"] = time.time() - t0
+    heights = {m.name: (k, scheme.chip_height(m, k))
+               for m, k in zip(pk.metas, proof.num_instances) if k}
+    rejected = {}
+    for what, bad in precompile_tampered(proof, heights["keccak_core"][1]):
+        try:
+            scheme.verify(pk.vk, bad)
+        except PROTOCOL_ERRORS as e:
+            rejected[what] = f"{type(e).__name__}: {str(e)[:80]}"
+            log(f"precompiles: a changed {what} rejected ({rejected[what]})")
+        else:
+            fail(f"precompiles: a keccak loop proof with a changed {what} was accepted")
+    classes = {}
+    for name, (_, h) in heights.items():
+        classes.setdefault(f"2^{h.bit_length() - 1}", []).append(name)
+    line = {"program": f"keccak loop({n})", "permutations": n, "steps": trace.n, "device": DEVICE,
+            "cfg": dataclasses.asdict(pk.cfg), "params": dataclasses.asdict(pk.params),
+            "seconds": seconds, "stage_seconds": stage_seconds(tree),
+            "spans": {name: node["total"] for name, node in tree.items()},
+            "witgen_spans": {name: node["total"]
+                             for name, node in tree["witgen"]["children"].items()},
+            "rows": {name: {"rows": k, "height": h} for name, (k, h) in heights.items()
+                     if name in PRECOMPILE_CHIPS},
+            "active_chips": len(heights), "classes": classes,
+            "proof_bytes": len(data), "max_memory_allocated": peak, "launches": counted,
+            "checked_on_device": checked, "rejected": rejected,
+            "sumcheck_first_rounds": len(shapes)}
+    return line, span_report, counted, shapes
 
 
 def main() -> int:
@@ -1503,8 +1887,22 @@ def main() -> int:
         shard_line["golden"] = shard_golden
         shard_line["seconds"]["golden_check"] = golden_s
         del pk, vm, trace
+    torch.cuda.empty_cache()
 
-    with phase("7 report"):
+    with phase("7 precompiles"):
+        t = time.time()
+        golden = precompile_golden_check()
+        golden["seconds"] = time.time() - t
+        check_shapes_ran([main_shape(SECP_CLASS_MAIN)], golden["secp"].pop("sumcheck_shapes"),
+                         "secp guest's prove")
+        # bench.py's ZKVMConfig and BasefoldParams(), as phase 5
+        pre_line, pre_report, pre_counted, pre_shapes = run_keccak_loop(
+            KECCAK_PERMS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams())
+        check_shapes_ran([main_shape(cm) for cm in KECCAK_CLASS_MAINS], pre_shapes,
+                         "keccak loop's prove")
+        pre_line["golden"] = golden
+
+    with phase("8 report"):
         print(pcs_report, flush=True)
         for path, (counted, trees) in (("PCS slice (phase 3)", (pcs_launches, MAIN_PATH_TREES)),
                                        ("e2e keygen (phase 5)", e2e_counted["keygen"]),
@@ -1532,6 +1930,12 @@ def main() -> int:
             if c <= 0:
                 fail(f"shards: kernel {name} was not launched in the sharded prove")
         print(json.dumps({"shards": shard_line}), flush=True)
+        print(pre_report, flush=True)
+        log(f"precompiles: launches over the keccak loop's prove: {pre_counted}")
+        for name, c in pre_counted.items():
+            if c <= 0:
+                fail(f"precompiles: kernel {name} was not launched in the keccak loop's prove")
+        print(json.dumps({"precompiles": pre_line}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

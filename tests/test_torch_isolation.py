@@ -1,7 +1,7 @@
 """The port stands alone: ceno_tpu_torch and chip_smoke import neither jax
 nor ceno_tpu, so they run where JAX is not installed, and the native
 emulator core and its AOT preflight build and run from the port's own copy
-of its source."""
+of its source, as do the guest I/O modules (``ceno_tpu_torch.host``)."""
 
 import os
 import pkgutil
@@ -31,7 +31,7 @@ def _sources():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert len(names) >= 65, names
+    assert len(names) >= 69, names
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"       # any `import jax` raises ImportError
@@ -43,6 +43,15 @@ def test_every_module_imports_without_jax():
         "vm = programs.fibonacci_vm(3)\n"
         "assert native.run_trace_native(vm).n == 29 and vm.regs[10] == 2\n"
         "assert native.run_preflight(programs.fibonacci_vm(3))[2] == 29\n"
+        "from ceno_tpu_torch.host import CenoStdin, from_words, read_all_messages, run\n"
+        "import chip_smoke\n"
+        "words = CenoStdin().write(3).write('ab').to_words()\n"
+        "assert from_words(words, ['u32', 'str']) == [3, 'ab']\n"
+        "vm = chip_smoke.guest_vm(chip_smoke.PRINTLN_SRC, [])\n"
+        "assert run(vm) == read_all_messages(vm) == chip_smoke.PRINTLN_MESSAGES\n"
+        "vm = chip_smoke.keccak_loop_vm(2)\n"
+        "native.run_trace_native(vm)\n"
+        "assert vm.pubio_digest == chip_smoke.keccak_digest([], 2)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "(m.split('.')[0] in ('jax', 'jaxlib', 'ceno_tpu'))]\n"
         "assert not bad, bad\n"

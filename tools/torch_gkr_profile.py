@@ -2,7 +2,7 @@
 """Where the card's time goes in chip_smoke's GKR phase or in a whole
 prove, by stage and by operation, from a torch.profiler trace.
 
-    python3 tools/torch_gkr_profile.py [--iters N] [--e2e | --shards]
+    python3 tools/torch_gkr_profile.py [--iters N] [--e2e | --shards | --keccak [P]]
 
 Runs ``fibonacci_vm(N)`` (default chip_smoke.GKR_ITERS, the full width) on
 the native core. Without an option it assigns the opcode chips and proves
@@ -10,7 +10,10 @@ the GKR stages (chip_smoke phase 4); with ``--e2e`` it makes the key
 (``ZKVMConfig(shl_x_bits=10)``, ``BasefoldParams()``, chip_smoke phase 5)
 and runs the whole ``zkvm/scheme.prove``; with ``--shards`` it makes the
 same key and runs ``zkvm/shard.prove_shards`` over two shards, pipelined
-(chip_smoke phase 6). Either way it proves once unprofiled (warm-up), then
+(chip_smoke phase 6); with ``--keccak`` it runs chip_smoke's keccak loop
+of P permutations (default chip_smoke.KECCAK_PERMS, phase 7b) instead of
+the fibonacci guest, as ``--e2e`` does. Either way it proves once
+unprofiled (warm-up), then
 once more under ``torch.profiler`` with every stage and every operation
 family wrapped in a ``record_function`` range:
 
@@ -224,15 +227,20 @@ def main() -> int:
     mode.add_argument("--e2e", action="store_true", help="profile the whole zkvm/scheme.prove")
     mode.add_argument("--shards", action="store_true",
                       help="profile zkvm/shard.prove_shards over two shards, pipelined")
+    mode.add_argument("--keccak", type=int, nargs="?", const=cs.KECCAK_PERMS, metavar="P",
+                      help="profile zkvm/scheme.prove of the keccak loop of P permutations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_gkr_profile: no CUDA device", file=sys.stderr)
         return 2
     print(cs.card_line(), flush=True)
     cs.DEVICE = "cuda"
-    if args.e2e or args.shards:
+    if args.e2e or args.shards or args.keccak is not None:
         t0 = time.time()
-        vm = cs.programs.fibonacci_vm(args.iters)
+        if args.keccak is None:
+            vm, program = cs.programs.fibonacci_vm(args.iters), f"fibonacci_vm({args.iters})"
+        else:
+            vm, program = cs.keccak_loop_vm(args.keccak), f"keccak loop({args.keccak})"
         trace = cs.native.run_trace_native(vm)
         cfg = ZKVMConfig(**cs.E2E_CFG)
         pk = scheme.keygen(vm.program, cfg, basefold.BasefoldParams(), device="cuda")
@@ -245,12 +253,13 @@ def main() -> int:
             def prove():
                 shard.prove_shards(pk, vm, trace, cs.max_steps_per_shard(trace.n), device="cuda")
         else:
-            stages, key = E2E_STAGES, "e2e_profile"
+            stages, key = E2E_STAGES, "e2e_profile" if args.keccak is None else "keccak_profile"
 
             def prove():
                 scheme.prove(pk, vm, trace, pv, device="cuda")
     else:
         vm, assigned, seconds = cs.emulate_and_assign(args.iters)
+        program = f"fibonacci_vm({args.iters})"
         pv = cs.public_values(vm)
         steps, stages, key = sum(a.num_instances for a in assigned), STAGES, "gkr_profile"
 
@@ -271,7 +280,7 @@ def main() -> int:
     for label, pairs in times.items():
         out["ported_kernels"][label].update(
             wrapper_calls=len(pairs), event_device_s=sum(a.elapsed_time(b) for a, b in pairs) / 1e3)
-    out.update(program=f"fibonacci_vm({args.iters})", steps=steps,
+    out.update(program=program, steps=steps,
                unprofiled_prove_s=warm_s, host_s=seconds)
     print(json.dumps({key: out}), flush=True)
     return 0
