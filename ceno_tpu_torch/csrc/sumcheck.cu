@@ -18,28 +18,42 @@
 // hi the second), then folds every column to lo + r (hi - lo).
 //
 // What bounds them on this card. K6a does, per element and term, deg + 1
-// products of DB + DE factors, and per node one ext product by the term's
-// scalar; it reads each column word once (from device memory; the terms that
-// share a column read it again from L1). At the main path's shapes it is
-// bound by the integer multiplies, as the Poseidon2 kernels are (PERF.md has
-// its bound and time). K6b reads and writes each word once: bound by bytes.
-// K5/K7 is one thread on one 16-word sponge: bound by the latency of its
-// permutations (about three a round for a deg-3 message), which is why it
-// exists at all: it keeps the fused loop on the card without a round trip to
-// the host per round.
+// products of the term's factors besides the sentinels, and per term and
+// node one ext product by the term's scalar; it needs each column word once
+// from device memory. At the main path's shapes it is bound by the integer
+// multiplies, as the Poseidon2 kernels are (PERF.md has its bound and time).
+// K6b reads and writes each word once: bound by bytes. K5/K7 is one thread
+// on one 16-word sponge: bound by the latency of its permutations (about
+// three a round for a deg-3 message), which is why it exists at all: it
+// keeps the fused loop on the card without a round trip to the host per
+// round.
 //
-// Design, simple first (a faster K6a is later work):
-// - K6a: one thread per element i of the half-cube (a grid-stride loop over
-//   at most MAX_BLOCKS blocks of THREADS), looping over the terms; the
-//   column's nodes come from lo by adding hi - lo, so t never multiplies; the
-//   term's value at each node is multiplied by its scalar and added to the
-//   thread's deg + 1 ext sums, which stay in registers (deg is a template
-//   parameter, 0..MAX_DEG). Each block reduces its threads' sums in shared
-//   memory and writes them to a scratch row; a second launch of one block
-//   adds the rows. Every sum is reduced mod p as it is made, never carried
-//   unreduced in 64 bits (2^21 summands of up to 2^31 would overflow). Field
-//   arithmetic is exact, so this order of summation gives the same bytes as
-//   the reference's (and any other) order.
+// Design:
+// - K6a: a grid of term chunks (x) by ranges of the half-cube (y), its plan
+//   chosen on the host (ceno_tpu_torch/sumcheck/terms.py round_evals_plan).
+//   A block's THREADS threads are t_lanes term slots of e_lanes threads; a
+//   short bank (the secp guest's class: one element, 39,422 terms) fills the
+//   card from its terms, a long one (a tower level: 2^20 elements, 10 terms)
+//   from its elements, and the chunks of one range run side by side (x is
+//   the fast axis), so a column they share comes from L2. Each thread sums
+//   its one term's product over its elements at the nodes t = 0..deg (a
+//   column's nodes come from lo by adding hi - lo, so t never multiplies)
+//   and multiplies the deg + 1 sums by the term's scalar once: the sum
+//   distributes. A factor that names its bank's ones sentinel is dropped
+//   (no padding product). The block first copies its chunk's factor table,
+//   sentinels removed, into shared memory; then each thread reads its
+//   factors from the banks. The term slots of a block walk the same
+//   elements together, so a column that several of its terms read (eq at
+//   every tower term) comes from L1 after the first; staging tiles of the
+//   columns in shared memory measured slower at every narrow bank (48 KB
+//   of static shared memory holds two elements a thread of a tower level's
+//   18 columns; PERF.md). deg is a template parameter (0..MAX_DEG): the
+//   deg + 1 products and sums stay in registers. Each block reduces its
+//   threads' products in shared memory into a scratch row; a second launch
+//   of one block adds the rows. Every sum is reduced mod p as it is made,
+//   never carried unreduced in 64 bits (2^21 summands of up to 2^31 would
+//   overflow). Field arithmetic is exact, so this order of summation gives
+//   the same bytes as the reference's (and any other) order.
 // - K6b: one thread per output word position (column, i), all four
 //   components; the challenge r is read from device memory, so the fused
 //   loop never brings it to the host. Mixed mode (base and ext banks in, the
@@ -68,10 +82,12 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 1024;
+constexpr int MAX_BLOCKS = 1024;  // K6b: blocks along the elements
 constexpr int MAX_DEG = 8;       // terms of at most 8 factors (div's and the shard-RAM
                                  // chips' class mains; the single-shard main path's: 4)
 constexpr int MAX_FACTORS = 16;  // DB + DE
+constexpr int TABLE_WORDS = 2048;  // K6a: a chunk's factor rows, t_lanes * (DB + DE) words
+constexpr int MAX_RANGES = 65535;  // K6a: element ranges (the grid's second axis)
 
 __device__ __forceinline__ Ext ext_load(const uint32_t* __restrict__ bank, int64_t comp,
                                         int64_t at) {
@@ -86,12 +102,13 @@ __device__ __forceinline__ void ext_store(uint32_t* bank, int64_t comp, int64_t 
   bank[3 * comp + at] = v.c3;
 }
 
-// Adds the K = (DEG + 1) * 4 words of every thread of the block; thread k < K
-// writes word k of the block's sum to out[k]. blockDim.x must be THREADS.
+// Adds the K = (DEG + 1) * 4 words of every thread of the block in sh (at
+// least K * THREADS words of shared memory); thread k < K writes word k of the
+// block's sum to out[k]. blockDim.x must be THREADS.
 template <int DEG>
-__device__ __forceinline__ void block_sum(const Ext (&acc)[DEG + 1], uint32_t* out) {
+__device__ __forceinline__ void block_sum(const Ext (&acc)[DEG + 1], uint32_t* sh,
+                                          uint32_t* out) {
   constexpr int K = (DEG + 1) * 4;
-  __shared__ uint32_t sh[K * THREADS];
   const int t = threadIdx.x;
 #pragma unroll
   for (int d = 0; d <= DEG; ++d) {
@@ -111,87 +128,188 @@ __device__ __forceinline__ void block_sum(const Ext (&acc)[DEG + 1], uint32_t* o
   if (t < K) out[t] = sh[t * THREADS];
 }
 
-// K6a, first pass: block b's sums to partial[b * K .. b * K + K), word
-// 4 * t + c the coefficient c of g(t).
+// K6a's banks: a column's lo and diff = hi - lo at element e of the
+// half-cube.
+struct Banks {
+  const uint32_t* __restrict__ base;
+  const uint32_t* __restrict__ ext;
+  int64_t n, half, comp;
+  __device__ __forceinline__ void base_at(int c, int64_t e, uint32_t& lo, uint32_t& diff) const {
+    const int64_t at = static_cast<int64_t>(c) * n + e;
+    lo = __ldg(base + at);
+    diff = sub(__ldg(base + at + half), lo);
+  }
+  __device__ __forceinline__ void ext_at(int c, int64_t e, Ext& lo, Ext& diff) const {
+    const int64_t at = static_cast<int64_t>(c) * n + e;
+    lo = ext_load(ext, comp, at);
+    diff = ext_sub(ext_load(ext, comp, at + half), lo);
+  }
+};
+
+// Adds one term's product at element e, at the nodes t = 0..DEG, to s. row
+// holds the term's factors without the sentinels: nb base columns, then (from
+// row[db]) ne ext columns. The nodes of a column are lo, lo + diff, ...: t
+// never multiplies. A term of sentinels only is one at every node.
 template <int DEG>
-__global__ void __launch_bounds__(THREADS)
-round_evals_kernel(const uint32_t* __restrict__ base, const uint32_t* __restrict__ ext,
-                   const int32_t* __restrict__ bidx, const int32_t* __restrict__ eidx,
-                   const uint32_t* __restrict__ scalars, uint32_t* __restrict__ partial,
-                   int64_t n, int64_t ext_cols, int n_terms, int db, int de) {
-  const int64_t half = n / 2, comp = ext_cols * n;
-  Ext acc[DEG + 1];
+__device__ __forceinline__ void add_term(Ext (&s)[DEG + 1], const Banks& banks,
+                                         const int32_t* row, int nb, int ne, int db, int64_t e) {
+  uint32_t pb[DEG + 1];
+  if (nb > 0) {
+    uint32_t lo, diff;
+    banks.base_at(row[0], e, lo, diff);
 #pragma unroll
-  for (int d = 0; d <= DEG; ++d) acc[d] = {0u, 0u, 0u, 0u};
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < half;
-       i += static_cast<int64_t>(gridDim.x) * THREADS) {
-    for (int term = 0; term < n_terms; ++term) {
-      uint32_t pb[DEG + 1];
-      Ext pe[DEG + 1];
-      for (int k = 0; k < db; ++k) {
-        const int64_t at = static_cast<int64_t>(__ldg(bidx + term * db + k)) * n + i;
-        const uint32_t lo = __ldg(base + at), diff = sub(__ldg(base + at + half), lo);
-        uint32_t v = lo;
-#pragma unroll
-        for (int d = 0; d <= DEG; ++d) {
-          pb[d] = k == 0 ? v : mmul(pb[d], v);
-          v = add(v, diff);
-        }
-      }
-      for (int k = 0; k < de; ++k) {
-        const int64_t at = static_cast<int64_t>(__ldg(eidx + term * de + k)) * n + i;
-        const Ext lo = ext_load(ext, comp, at), diff = ext_sub(ext_load(ext, comp, at + half), lo);
-        Ext v = lo;
-#pragma unroll
-        for (int d = 0; d <= DEG; ++d) {
-          pe[d] = k == 0 ? v : ext_mul(pe[d], v);
-          v = ext_add(v, diff);
-        }
-      }
-      const Ext sc = {__ldg(scalars + term), __ldg(scalars + n_terms + term),
-                      __ldg(scalars + 2 * n_terms + term), __ldg(scalars + 3 * n_terms + term)};
+    for (int d = 0; d <= DEG; ++d) {
+      pb[d] = lo;
+      lo = add(lo, diff);
+    }
+    for (int k = 1; k < nb; ++k) {
+      banks.base_at(row[k], e, lo, diff);
 #pragma unroll
       for (int d = 0; d <= DEG; ++d) {
-        Ext v;
-        if (de == 0)
-          v = {pb[d], 0u, 0u, 0u};
-        else if (db == 0)
-          v = pe[d];
-        else
-          v = ext_mul_base(pe[d], pb[d]);
-        acc[d] = ext_add(acc[d], ext_mul(sc, v));
+        pb[d] = mmul(pb[d], lo);
+        lo = add(lo, diff);
       }
     }
   }
-  block_sum<DEG>(acc, partial + static_cast<int64_t>(blockIdx.x) * (DEG + 1) * 4);
+  if (ne > 0) {
+    Ext pe[DEG + 1], lo, diff;
+    banks.ext_at(row[db], e, lo, diff);
+    if (nb > 0) {
+#pragma unroll
+      for (int d = 0; d <= DEG; ++d) {
+        pe[d] = ext_mul_base(lo, pb[d]);
+        lo = ext_add(lo, diff);
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d <= DEG; ++d) {
+        pe[d] = lo;
+        lo = ext_add(lo, diff);
+      }
+    }
+    for (int k = 1; k < ne; ++k) {
+      banks.ext_at(row[db + k], e, lo, diff);
+#pragma unroll
+      for (int d = 0; d <= DEG; ++d) {
+        pe[d] = ext_mul(pe[d], lo);
+        lo = ext_add(lo, diff);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d <= DEG; ++d) s[d] = ext_add(s[d], pe[d]);
+  } else {
+#pragma unroll
+    for (int d = 0; d <= DEG; ++d) s[d].c0 = add(s[d].c0, nb > 0 ? pb[d] : MONTY_ONE);
+  }
 }
 
-// K6a, second pass: one block adds the blocks' rows into out ((DEG + 1), 4).
+// K6a's blocks a multiprocessor the compiler keeps registers for. The
+// kernel waits on its loads, so at deg <= 4 (every main-path shape but the
+// shard-RAM chips') more resident warps pay for fewer registers a thread,
+// some of them spilled (PERF.md has the measurement).
+#ifndef K6A_MIN_BLOCKS_DEG3
+#define K6A_MIN_BLOCKS_DEG3 4  // deg <= 3: 64 registers
+#endif
+#ifndef K6A_MIN_BLOCKS_DEG4
+#define K6A_MIN_BLOCKS_DEG4 3  // deg 4: 80 registers
+#endif
+
+// K6a, first pass. Block (x, y) takes the chunk of t_lanes terms from
+// x * t_lanes and the y-th of gridDim.y equal ranges of the half-cube; thread
+// (slot, lane) = (tid / e_lanes, tid % e_lanes) sums its term slot's product
+// over the range's elements lane, lane + e_lanes, ..., multiplies the (DEG +
+// 1) sums by the term's scalar once, and the block's sums go to partial row
+// y * gridDim.x + x (word 4 * t + c the coefficient c of g(t)).
+template <int DEG>
+__global__ void __launch_bounds__(THREADS, DEG <= 3 ? K6A_MIN_BLOCKS_DEG3
+                                               : DEG == 4 ? K6A_MIN_BLOCKS_DEG4 : 1)
+round_evals_kernel(const uint32_t* __restrict__ base, const uint32_t* __restrict__ ext,
+                   const int32_t* __restrict__ bidx, const int32_t* __restrict__ eidx,
+                   const uint32_t* __restrict__ scalars, uint32_t* __restrict__ partial,
+                   int64_t n, int base_cols, int ext_cols, int n_terms, int db, int de,
+                   int t_lanes, int e_lanes) {
+  constexpr int K = (DEG + 1) * 4;
+  __shared__ uint32_t sm[TABLE_WORDS > K * THREADS ? TABLE_WORDS : K * THREADS];  // table, then block_sum
+  __shared__ int counts[THREADS];  // a slot's nb | ne << 16
+  const int dbe = db + de, slot = threadIdx.x / e_lanes, lane = threadIdx.x % e_lanes;
+  const int term = blockIdx.x * t_lanes + slot;
+  const bool active = slot < t_lanes && term < n_terms;
+  auto* table = reinterpret_cast<int32_t*>(sm);  // slot's row at table[slot * dbe]
+  if (active && lane == 0) {
+    int32_t* row = table + slot * dbe;
+    int nb = 0, ne = 0;
+    for (int k = 0; k < db; ++k) {
+      const int32_t c = __ldg(bidx + static_cast<int64_t>(term) * db + k);
+      if (c != base_cols - 1) row[nb++] = c;
+    }
+    for (int k = 0; k < de; ++k) {
+      const int32_t c = __ldg(eidx + static_cast<int64_t>(term) * de + k);
+      if (c != ext_cols - 1) row[db + ne++] = c;
+    }
+    counts[slot] = nb | ne << 16;
+  }
+  __syncthreads();
+  const int64_t half = n / 2, span = (half + gridDim.y - 1) / gridDim.y;
+  const int64_t start = static_cast<int64_t>(blockIdx.y) * span;
+  const int64_t end = start + span < half ? start + span : half;
+  Ext acc[DEG + 1];
+  if (active) {
+    const Banks banks{base, ext, n, half, static_cast<int64_t>(ext_cols) * n};
+    const int32_t* row = table + slot * dbe;
+    const int nb = counts[slot] & 0xffff, ne = counts[slot] >> 16;
+    Ext s[DEG + 1];
+#pragma unroll
+    for (int d = 0; d <= DEG; ++d) s[d] = {0u, 0u, 0u, 0u};
+    for (int64_t e = start + lane; e < end; e += e_lanes) add_term<DEG>(s, banks, row, nb, ne, db, e);
+    const Ext sc = {__ldg(scalars + term), __ldg(scalars + n_terms + term),
+                    __ldg(scalars + 2 * n_terms + term), __ldg(scalars + 3 * n_terms + term)};
+#pragma unroll
+    for (int d = 0; d <= DEG; ++d) acc[d] = ext_mul(sc, s[d]);
+  } else {
+#pragma unroll
+    for (int d = 0; d <= DEG; ++d) acc[d] = {0u, 0u, 0u, 0u};
+  }
+  __syncthreads();  // the table is read; block_sum reuses sm
+  block_sum<DEG>(acc, sm, partial + (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * K);
+}
+
+// K6a, second pass: one block adds the rows into out ((DEG + 1), 4).
 template <int DEG>
 __global__ void __launch_bounds__(THREADS)
 round_evals_reduce_kernel(const uint32_t* __restrict__ partial, uint32_t* __restrict__ out,
-                          int blocks) {
+                          int64_t rows) {
   constexpr int K = (DEG + 1) * 4;
+  __shared__ uint32_t sh[K * THREADS];
   Ext acc[DEG + 1];
 #pragma unroll
   for (int d = 0; d <= DEG; ++d) acc[d] = {0u, 0u, 0u, 0u};
-  for (int b = threadIdx.x; b < blocks; b += THREADS) {
-    const uint32_t* row = partial + static_cast<int64_t>(b) * K;
+  for (int64_t b = threadIdx.x; b < rows; b += THREADS) {
+    const uint32_t* row = partial + b * K;
 #pragma unroll
     for (int d = 0; d <= DEG; ++d)
       acc[d] = ext_add(acc[d], {row[4 * d], row[4 * d + 1], row[4 * d + 2], row[4 * d + 3]});
   }
-  block_sum<DEG>(acc, out);
+  block_sum<DEG>(acc, sh, out);
 }
 
+// The argument of both K6a launches.
+struct EvalArgs {
+  const uint32_t *base, *ext;
+  const int32_t *bidx, *eidx;
+  const uint32_t* scalars;
+  uint32_t *partial, *out;
+  int64_t n;
+  int base_cols, ext_cols, n_terms, db, de, t_lanes, e_lanes, chunks, ranges;
+};
+
 template <int DEG>
-void launch_round_evals(const uint32_t* base, const uint32_t* ext, const int32_t* bidx,
-                        const int32_t* eidx, const uint32_t* scalars, uint32_t* partial,
-                        uint32_t* out, int64_t n, int64_t ext_cols, int n_terms, int db, int de,
-                        int blocks, cudaStream_t s) {
-  round_evals_kernel<DEG><<<blocks, THREADS, 0, s>>>(base, ext, bidx, eidx, scalars, partial, n,
-                                                     ext_cols, n_terms, db, de);
-  round_evals_reduce_kernel<DEG><<<1, THREADS, 0, s>>>(partial, out, blocks);
+void launch_round_evals(const EvalArgs& a, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(a.chunks), static_cast<unsigned>(a.ranges));
+  round_evals_kernel<DEG><<<grid, THREADS, 0, s>>>(a.base, a.ext, a.bidx, a.eidx, a.scalars,
+                                                   a.partial, a.n, a.base_cols, a.ext_cols,
+                                                   a.n_terms, a.db, a.de, a.t_lanes, a.e_lanes);
+  round_evals_reduce_kernel<DEG><<<1, THREADS, 0, s>>>(
+      a.partial, a.out, static_cast<int64_t>(a.chunks) * a.ranges);
 }
 
 // K6b: out (4, cb + ce1, n / 2) from base (cb + 1, n) and ext (4, ce1, n);
@@ -272,36 +390,41 @@ duplex_kernel(uint32_t* __restrict__ state, const uint32_t* __restrict__ in, int
 }  // namespace
 
 // K6a: g(0..deg) of the terms over the banks into out ((deg + 1), 4).
-// base (db + ... , n) may be null when db == 0. bidx (n_terms, db) and eidx
-// (n_terms, de) int32 index the banks (the caller checks their range),
-// scalars (4, n_terms); partial holds blocks * (deg + 1) * 4 words, blocks
-// in [1, 1024] (the wrapper takes min(1024, ceil(n / 512))).
+// base (base_cols, n) may be null when db == 0; ext (4, ext_cols, n). The last
+// column of each bank is the ones sentinel: a factor that names it is taken as
+// one and not read. bidx (n_terms, db) and eidx (n_terms, de) int32 index the
+// banks (the caller checks their range), scalars (4, n_terms). The plan
+// (ceno_tpu_torch/sumcheck/terms.py round_evals_plan): chunks of t_lanes terms
+// times ranges of the half-cube blocks, e_lanes threads a term. partial holds
+// chunks * ranges * (deg + 1) * 4 words.
 extern "C" int sc_round_evals(const void* base, const void* ext, const void* bidx,
                               const void* eidx, const void* scalars, void* partial, void* out,
-                              int64_t n, int64_t ext_cols, int n_terms, int db, int de, int deg,
-                              int blocks, void* stream) {
-  if (n < 2 || n % 2 || ext_cols < 0 || n_terms < 0 || db < 0 || de < 0 ||
-      db + de < 1 || db + de > MAX_FACTORS || deg < 0 || deg > MAX_DEG || blocks < 1 ||
-      blocks > MAX_BLOCKS || (db > 0 && base == nullptr) || (de > 0 && ext == nullptr))
+                              int64_t n, int base_cols, int ext_cols, int n_terms, int db, int de,
+                              int deg, int t_lanes, int e_lanes, int chunks, int ranges,
+                              void* stream) {
+  if (n < 2 || n % 2 || ext_cols < 1 || n_terms < 0 || db < 0 || de < 0 ||
+      db + de < 1 || db + de > MAX_FACTORS || deg < 0 || deg > MAX_DEG ||
+      (db > 0 && (base == nullptr || base_cols < 1)) || (de > 0 && ext == nullptr) ||
+      t_lanes < 1 || e_lanes < 1 || t_lanes * e_lanes > THREADS || chunks < 1 || ranges < 1 ||
+      ranges > MAX_RANGES || static_cast<int64_t>(chunks) * t_lanes < n_terms ||
+      t_lanes * (db + de) > TABLE_WORDS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* b = static_cast<const uint32_t*>(base);
-  const auto* e = static_cast<const uint32_t*>(ext);
-  const auto* bi = static_cast<const int32_t*>(bidx);
-  const auto* ei = static_cast<const int32_t*>(eidx);
-  const auto* sc = static_cast<const uint32_t*>(scalars);
-  auto* pa = static_cast<uint32_t*>(partial);
-  auto* o = static_cast<uint32_t*>(out);
+  const EvalArgs a{static_cast<const uint32_t*>(base), static_cast<const uint32_t*>(ext),
+                   static_cast<const int32_t*>(bidx), static_cast<const int32_t*>(eidx),
+                   static_cast<const uint32_t*>(scalars), static_cast<uint32_t*>(partial),
+                   static_cast<uint32_t*>(out), n, base_cols, ext_cols, n_terms, db, de,
+                   t_lanes, e_lanes, chunks, ranges};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (deg) {
-    case 0: launch_round_evals<0>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    case 1: launch_round_evals<1>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    case 2: launch_round_evals<2>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    case 3: launch_round_evals<3>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    case 4: launch_round_evals<4>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    case 5: launch_round_evals<5>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    case 6: launch_round_evals<6>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    case 7: launch_round_evals<7>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
-    default: launch_round_evals<8>(b, e, bi, ei, sc, pa, o, n, ext_cols, n_terms, db, de, blocks, s); break;
+    case 0: launch_round_evals<0>(a, s); break;
+    case 1: launch_round_evals<1>(a, s); break;
+    case 2: launch_round_evals<2>(a, s); break;
+    case 3: launch_round_evals<3>(a, s); break;
+    case 4: launch_round_evals<4>(a, s); break;
+    case 5: launch_round_evals<5>(a, s); break;
+    case 6: launch_round_evals<6>(a, s); break;
+    case 7: launch_round_evals<7>(a, s); break;
+    default: launch_round_evals<8>(a, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

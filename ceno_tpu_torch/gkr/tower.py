@@ -255,15 +255,17 @@ def fused_tower_enabled() -> bool:
 def _level_static(n_prod: int, n_logup: int):
     """A level's term tables, the same at every level: (bidx, eidx, midx,
     alpha_idx, deg). compile_terms pads the term count to a power of two with
-    zero-scalar terms; their alpha_idx points at a zero slot after the
-    n_claims powers, so the scalars gathered on the device are zero there."""
+    zero-scalar terms; they weigh zero, so they are dropped here (the
+    reference's fused tower evaluates them) and every term's alpha_idx is
+    one of the n_claims powers. deg is compile_terms', made before the
+    padding."""
     alpha_idx, eidx = _level_terms(n_prod, n_logup)
     n_ext = 1 + 2 * n_prod + 4 * n_logup  # eq + the split columns
     one = np.array([1, 0, 0, 0], np.uint64)
     bidx, eidx, _, deg = sc_prover.compile_terms(
         [TermSpec(one, eidx=e) for e in eidx], 0, n_ext)
-    n_claims = n_prod + 2 * n_logup
-    alpha_idx = alpha_idx + [n_claims] * (bidx.shape[0] - len(alpha_idx))
+    live = len(alpha_idx)
+    bidx, eidx = bidx[:live], eidx[:live]
     midx = T.merge_indices(bidx, eidx, 0, n_ext)
     return bidx, eidx, midx, np.asarray(alpha_idx, np.int64), deg
 
@@ -289,12 +291,12 @@ def _fused_tower_levels(prod_lys, logup_lys, state, rt, *, pos: int, sq_pos: int
     alpha_idx = torch.from_numpy(alpha_idx_np).to(dev)
     sizes = [(level * (deg + 1) * 4, s_e * 4) for level in range(1, n_vars)]
     flat = torch.empty(sum(a + b for a, b in sizes), dtype=bb.DTYPE, device=dev)
-    pows = torch.zeros((4, n_claims + 1), dtype=bb.DTYPE, device=dev)  # last: the zero slot
+    pows = torch.empty((4, n_claims), dtype=bb.DTYPE, device=dev)
     alpha = torch.empty(4, dtype=bb.DTYPE, device=dev)
     dpx = F._DeviceDuplex(state.clone(), pos, sq_pos, absorbed)
     off = 0
     for level, (n_m, n_e) in zip(range(1, n_vars), sizes):
-        dpx.sample_ext(alpha, pows=pows[:, :n_claims])
+        dpx.sample_ext(alpha, pows=pows)
         scalars = pows[:, alpha_idx]
         layers = [ls[level] for ls in prod_lys] + [
             lys[i][level] for lys in logup_lys for i in (0, 1)]

@@ -15,7 +15,8 @@ launches its kernel on the current stream, or raises; on a CPU tensor it runs
 the plain torch version beside it (``*_plain``), which is also what the
 kernels are compared with on the card. Every call that launches a kernel adds
 one to ``LAUNCHES[name]`` (a K6a call is two launches: the per-block sums and
-their reduction). The fold reads its challenge from a (4,) tensor and never
+their reduction). :func:`round_evals_plan` chooses K6a's grid of term chunks
+by element ranges. The fold reads its challenge from a (4,) tensor and never
 brings it to the host, so the fused rounds (``sumcheck/fused.py``) can chain
 evals, duplex and folds on the card.
 
@@ -26,6 +27,7 @@ per-term scalar multiplies the already-summed (deg+1, 4) vector.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -40,14 +42,24 @@ _CHUNK_ELEMS = 1 << 24
 
 LAUNCHES = {"round_evals": 0, "fold": 0}
 
-# csrc/sumcheck.cu's limits: K6a's threads a block and most blocks, its
-# largest degree (a template parameter) and factors a term (DB + DE); K6b's
-# most output columns (its grid's second axis)
+# csrc/sumcheck.cu's limits: K6a's threads a block, its largest degree (a
+# template parameter), factors a term (DB + DE), words of a chunk's factor
+# table, and element ranges (its grid's second axis); K6b's most output
+# columns (its grid's second axis)
 THREADS = 256
-MAX_BLOCKS = 1024
 MAX_DEG = 8
 MAX_FACTORS = 16
+TABLE_WORDS = 2048
+MAX_RANGES = 65535
 MAX_FOLD_COLS = 65535
+
+# K6a's plan: threads a term at least (a warp's loads of one column take
+# whole 128-byte lines), blocks to aim for (8 a streaming multiprocessor of
+# the H100's 132), elements a thread at least before the range is split
+# further
+MIN_E_LANES = 32
+TARGET_BLOCKS = 132 * 8
+MIN_ELEMS = 8
 
 
 def reset_launches() -> None:
@@ -65,8 +77,8 @@ def _lib():
 def declare(lib):
     """Declare the C signatures of csrc/sumcheck.cu's entry points on ``lib``."""
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.sc_round_evals.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
-                                   i32, vp]
+    lib.sc_round_evals.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
+                                   i32, i32, i32, i32, i32, vp]
     lib.sc_fold.argtypes = [vp, vp, vp, vp, i64, i32, i32, vp]
     lib.sc_duplex.argtypes = [vp, vp, i32, vp, vp, i32, i64, i32, i32, i32, vp]
     for fn in (lib.sc_round_evals, lib.sc_fold, lib.sc_duplex):
@@ -179,6 +191,58 @@ def fold_ext_bank_plain(ext_bank, r):
 
 
 # ---------------------------------------------------------------------------
+# K6a's launch plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EvalPlan:
+    """K6a's launch: ``chunks`` x ``ranges`` blocks of THREADS threads. Block
+    (x, y) takes the terms x * t_lanes .. (x + 1) * t_lanes - 1 and the y-th
+    of ``ranges`` equal ranges of the half-cube; each term has ``e_lanes``
+    threads, each of which sums its term over every e_lanes-th element of
+    the range."""
+    t_lanes: int
+    e_lanes: int
+    chunks: int
+    ranges: int
+
+    @property
+    def blocks(self) -> int:
+        return self.chunks * self.ranges
+
+
+@functools.lru_cache(maxsize=4096)
+def round_evals_plan(half: int, t: int, db: int, de: int, *, t_lanes: int | None = None,
+                     ranges: int | None = None) -> EvalPlan:
+    """K6a's plan for ``t`` terms of ``db`` base and ``de`` ext factors over
+    a half-cube of ``half`` elements.
+
+    Terms fill the block first, as many as leave MIN_E_LANES threads a term
+    (a short bank's width is in its terms), in chunks of equal size; the
+    threads left over go to the elements. Element ranges then bring the
+    blocks to TARGET_BLOCKS while each thread keeps MIN_ELEMS elements.
+    ``t_lanes`` and ``ranges`` override the choice (the tests force many
+    chunks and ranges at small sizes)."""
+    t1 = max(t, 1)
+    if t_lanes is None:
+        t_lanes = min(t1, THREADS // min(MIN_E_LANES, half), TABLE_WORDS // max(db + de, 1))
+        t_lanes = -(-t1 // -(-t1 // t_lanes))  # chunks of equal size
+    chunks = -(-t1 // t_lanes)
+    e_lanes = max(1, min(THREADS // t_lanes, half))
+    if ranges is None:
+        ranges = max(1, min(-(-TARGET_BLOCKS // chunks), half // (e_lanes * MIN_ELEMS),
+                            MAX_RANGES))
+        ranges = -(-half // -(-half // ranges))  # no range left empty
+    return EvalPlan(t_lanes, e_lanes, chunks, ranges)
+
+
+def eval_plan(ext_bank, bidx, eidx, **overrides) -> EvalPlan:
+    """The plan :func:`round_evals` takes for this bank length and these tables."""
+    return round_evals_plan(ext_bank.shape[2] // 2, bidx.shape[0], bidx.shape[1], eidx.shape[1],
+                            **overrides)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -201,11 +265,12 @@ def check_index_range(idx: torch.Tensor, cols: int, what: str) -> None:
 
 
 def launch_round_evals(lib, stream, base_bank, ext_bank, bidx, eidx, scalars, deg: int, out,
-                       check_indices: bool = True) -> None:
+                       check_indices: bool = True, plan: EvalPlan | None = None) -> None:
     """K6a through ``lib`` on ``stream``: checks, scratch, one C call.
 
     ``base_bank`` may be None (no base factors); ``out`` is a contiguous
-    (deg+1, 4) int32 tensor on the banks' device."""
+    (deg+1, 4) int32 tensor on the banks' device; ``plan`` is
+    :func:`eval_plan`'s unless given."""
     dev = ext_bank.device
     check_words(ext_bank, "round_evals: ext bank", 3, dev)
     if ext_bank.shape[0] != 4:
@@ -236,14 +301,16 @@ def launch_round_evals(lib, stream, base_bank, ext_bank, bidx, eidx, scalars, de
         check_index_range(bi, base_bank.shape[0] if base_bank is not None else 0,
                           "round_evals: bidx")
         check_index_range(ei, ext_bank.shape[1], "round_evals: eidx")
-    blocks = max(1, min(MAX_BLOCKS, -(-(n // 2) // THREADS)))
+    if plan is None:
+        plan = eval_plan(ext_bank, bi, ei)
     # scratch (and the int32 tables) may be freed before the kernel has run:
     # the caching allocator hands their memory only to later work on this stream
-    partial = torch.empty(blocks * (deg + 1) * 4, dtype=bb.DTYPE, device=dev)
+    partial = torch.empty(plan.blocks * (deg + 1) * 4, dtype=bb.DTYPE, device=dev)
     rc = lib.sc_round_evals(
         base_bank.data_ptr() if base_bank is not None else None, ext_bank.data_ptr(),
         bi.data_ptr(), ei.data_ptr(), scalars.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, ext_bank.shape[1], t, db, de, deg, blocks, stream)
+        n, base_bank.shape[0] if base_bank is not None else 0, ext_bank.shape[1], t, db, de,
+        deg, plan.t_lanes, plan.e_lanes, plan.chunks, plan.ranges, stream)
     cuda_build.raise_on(rc, "round_evals")
 
 
@@ -252,7 +319,9 @@ def round_evals(base_bank, ext_bank, bidx, eidx, scalars, *, deg: int, out=None,
     """K6a: batched univariate evals, (deg+1, 4) Montgomery (written into
     ``out`` when given).
 
-    bidx (T, DB) and eidx (T, DE) int32 or int64 tensors index the banks;
+    bidx (T, DB) and eidx (T, DE) int32 or int64 tensors index the banks,
+    whose last column must be the ones sentinel (:func:`make_banks` appends
+    it): the kernel takes a factor that names it as one without reading it.
     scalars (4, T) Montgomery. ``check_indices=False`` skips the index range
     check, for a caller that has checked the same tables before."""
     if ext_bank.device.type == "cpu":

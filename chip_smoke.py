@@ -27,7 +27,8 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      (phase 6 runs them) and at the precompile class mains
      (``PRECOMPILE_CLASS_MAINS``: the keccak core's 2^15 class, the keccak
      ecall's 2^10 class, the secp guest's 2-row class; phase 7 runs them);
-     with ptxas's registers and spills for each;
+     with ptxas's registers and spills for each, and for K6a the launch plan
+     its wrapper chose (``terms.round_evals_plan``);
   3. the PCS slice end to end with the default BasefoldParams: commit, open
      and verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack,
      each with one random ext4 point per height class and the true MLE value
@@ -79,7 +80,8 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      main thread; the launch counts reset just before and read just after,
      each kernel's at least one); ``verify_shards`` must accept, the
      cross-shard EC sum be the identity, and the same tampered proofs be
-     rejected;
+     rejected; then K6a against its plain version, bitwise and timed, on the
+     first-round inputs of the shard-RAM 2^9 class main that prove made;
   7. precompiles and guest I/O: first the golden gate, the proofs of four
      guests at ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and
      ``BasefoldParams()`` (``examples/precompile_torture.s``: keccak-f, SHA
@@ -97,11 +99,14 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      read just after, each kernel's at least one), verify, and a changed
      main-zerocheck message of the keccak core's class and a changed public
      value rejected; the secp guest's and the keccak loop's proves must run
-     phase 2's precompile class mains;
+     phase 2's precompile class mains; then K6a against its plain version,
+     bitwise and timed, on the first-round inputs of the keccak core's 2^15
+     class main that prove made;
   8. report: phase 3's span tree; the launch counts of phase 3 and of
      phase 5's keygen and timed prove, each equal to its trees' launch
      plans (K1 once a tree, K2 as ``merkle_plan`` plans it); a
-     ``{"kernel_shapes": ...}`` line with every shape of phase 2; phase 4's
+     ``{"kernel_shapes": ...}`` line with every shape of phase 2 and the
+     real inputs of phases 6 and 7; phase 4's
      span tree and its ``{"gkr": {...}}`` line; phase 5's span tree, its
      proof size beside the reference's, and its ``{"e2e": {...}}`` line; a
      ``{"kernels": [...]}`` line (the largest shapes; launches over phase 5's
@@ -188,7 +193,7 @@ SMALL_TREES = range(1, 12)  # log2 of the leaf counts of the small K2 trees
 # The main path's largest sumchecks, whose shapes phase 2 holds K6a and K6b
 # at (phase 4 checks that the 2^20-step fibonacci's GKR stages run them):
 # - the first round of tower level 21 of the 2^22 group (add and addi):
-#   TOWER_SPECS product and LogUp specs, the fused tower's padded term table;
+#   TOWER_SPECS product and LogUp specs, the fused tower's term table;
 # - the first round of the 2^19 and 2^18 class mains: their base columns
 #   (witness, fixed and structural), sel_eq columns (one a chip), live terms,
 #   the most base and ext factors a term has and the degree.
@@ -470,17 +475,15 @@ def random_banks(rng, n_base: int, n_ext: int, n: int) -> tuple:
 def main_path_sumchecks(rng) -> list:
     """(what, base bank, ext bank, bidx, eidx, scalars, deg) at the shapes of
     TOWER_* and CLASS_MAINS. The tower level has the fused tower's own
-    tables (``tower._level_static``) and scalars gathered from seeded alpha
-    powers with the zero slot, as the card builds them; a class main has
+    tables (``tower._level_static``: its live terms) and scalars gathered
+    from seeded alpha powers, as the card builds them; a class main has
     seeded tables of its shape (the terms' real indices come from the chips'
     constraints, which this phase does not build)."""
     out = []
     n_prod, n_logup = TOWER_SPECS
     bidx, eidx, _, alpha_idx, deg = tower._level_static(n_prod, n_logup)
     n_claims, s_e = n_prod + 2 * n_logup, 2 * n_prod + 4 * n_logup
-    pows = torch.zeros((4, n_claims + 1), dtype=bb.DTYPE, device=DEVICE)
-    pows[:, :n_claims] = bb.to_device(rng.integers(0, bb.P, size=(4, n_claims), dtype=np.uint64),
-                                      DEVICE)
+    pows = bb.to_device(rng.integers(0, bb.P, size=(4, n_claims), dtype=np.uint64), DEVICE)
     base, ext = random_banks(rng, 0, s_e + 1, 1 << TOWER_LOG_N)
     dev_idx = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)  # noqa: E731
     out.append((f"tower level {TOWER_LOG_N} of the 2^{TOWER_LOG_N + 1} group", base, ext,
@@ -540,6 +543,31 @@ def fold_bound(cb: int, ce1: int, n: int) -> tuple:
     return bound_of(half * (4 * cb + EXT_PRODUCTS * ce1) * MULS_PER_PRODUCT, nbytes)
 
 
+def k6a_row(what: str, base, ext, bidx, eidx, scalars, deg: int, ptxas: dict) -> dict:
+    """K6a against its plain version, bitwise, on these inputs, with the
+    times of both, the bound, the plan it chose and its kernel's ptxas
+    line."""
+    plan = terms.eval_plan(ext, bidx, eidx)
+    got = terms.round_evals(base, ext, bidx, eidx, scalars, deg=deg)
+    ms = cuda_ms(lambda: terms.round_evals(base, ext, bidx, eidx, scalars, deg=deg,
+                                           check_indices=False), reps=5)
+    want, plain_ms = wall_ms(lambda: terms.round_evals_plain(base, ext, bidx, eidx, scalars,
+                                                             deg=deg))
+    err = max_abs_err(got, want)
+    b_ms, b_by = round_evals_bound(base, ext, bidx, eidx, scalars, deg)
+    kernel = f"round_evals_kernel<{deg}>"
+    row = dict(name="round_evals", shape=f"{what}: base {tuple(base.shape)}, ext "
+               f"{tuple(ext.shape)}, T {bidx.shape[0]}, DB {bidx.shape[1]}, DE {eidx.shape[1]}, "
+               f"deg {deg}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, plan=dataclasses.asdict(plan),
+               ptxas={kernel: ptxas.get(kernel, "not built in this process")})
+    log(f"K6a {row['shape']}: max_abs_err {err}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it; {plan}; {row['ptxas']}")
+    if err:
+        fail(f"K6a differs from its plain version on the {what}")
+    return row
+
+
 def sumcheck_kernels_vs_plain(rng, ptxas: dict) -> tuple:
     """K6a, K6b (mixed and ext mode) and K5/K7 against their plain versions,
     bitwise, at the main path's largest shapes, with the times of both and
@@ -548,23 +576,8 @@ def sumcheck_kernels_vs_plain(rng, ptxas: dict) -> tuple:
     regs = lambda k: ptxas.get(k, "not built in this process")  # noqa: E731
     for what, base, ext, bidx, eidx, scalars, deg in main_path_sumchecks(rng):
         n, cb, ce1 = ext.shape[2], base.shape[0] - 1, ext.shape[1]
-        got = terms.round_evals(base, ext, bidx, eidx, scalars, deg=deg)
-        ms = cuda_ms(lambda: terms.round_evals(base, ext, bidx, eidx, scalars, deg=deg,
-                                               check_indices=False), reps=5)
-        want, plain_ms = wall_ms(lambda: terms.round_evals_plain(base, ext, bidx, eidx, scalars,
-                                                                 deg=deg))
-        err = max_abs_err(got, want)
-        b_ms, b_by = round_evals_bound(base, ext, bidx, eidx, scalars, deg)
-        rows.append(dict(name="round_evals", shape=f"{what}: base {tuple(base.shape)}, ext "
-                         f"{tuple(ext.shape)}, T {bidx.shape[0]}, DB {bidx.shape[1]}, "
-                         f"DE {eidx.shape[1]}, deg {deg}", max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         ptxas=regs(f"round_evals_kernel<{deg}>")))
+        rows.append(k6a_row(what, base, ext, bidx, eidx, scalars, deg, ptxas))
         results.setdefault("round_evals", rows[-1])
-        log(f"K6a {rows[-1]['shape']}: max_abs_err {err}, kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), {rows[-1]['ptxas']}")
-        if err:
-            fail(f"K6a differs from its plain version on the {what}")
         r = bb.to_device(rng.integers(0, bb.P, size=4, dtype=np.uint64), DEVICE)
         for mode, fold, plain, args, cols in (
                 ("mixed", terms.fold_banks, terms.fold_banks_plain, (base, ext, r), (cb, ce1)),
@@ -930,16 +943,26 @@ def run_gkr(n: int) -> dict:
 
 
 @contextlib.contextmanager
-def sumcheck_calls():
+def sumcheck_calls(keep: dict | None = None):
     """Record the first round of every sumcheck made inside the block (the
     K6a calls with a base bank): its banks' shapes, term table shapes,
-    degree and scalars."""
+    degree and scalars. ``keep`` maps names to first-round shapes as
+    :func:`main_shape` gives them; the first call of each shape replaces
+    its entry with that call's inputs (base bank, ext bank, bidx, eidx,
+    scalars, deg)."""
     calls, original = [], terms.round_evals
+    want = dict(keep or {})
 
     def inner(base_bank, ext_bank, bidx, eidx, scalars, **kwargs):
         if base_bank is not None:
             calls.append((tuple(base_bank.shape), tuple(ext_bank.shape), tuple(bidx.shape),
                           tuple(eidx.shape), kwargs["deg"], scalars))
+            for name, w in want.items():
+                if keep[name] is w and (w["base"], w["ext"], w["terms"], w["db"], w["de"],
+                                        w["deg"]) == (list(base_bank.shape),
+                                                      list(ext_bank.shape), *bidx.shape,
+                                                      eidx.shape[1], kwargs["deg"]):
+                    keep[name] = (base_bank, ext_bank, bidx, eidx, scalars, kwargs["deg"])
         return original(base_bank, ext_bank, bidx, eidx, scalars, **kwargs)
     terms.round_evals = inner
     try:
@@ -1410,7 +1433,21 @@ def ec_sum_of(sproof) -> tuple:
     return acc
 
 
-def run_continuations(pk, vm, trace, n: int) -> tuple:
+def real_k6a_rows(kept: dict, ptxas: dict) -> list:
+    """:func:`k6a_row` on the inputs :func:`sumcheck_calls` kept: a prove's
+    real banks and term tables, whose column locality seeded tables lack."""
+    rows = []
+    for what, inputs in kept.items():
+        if isinstance(inputs, dict):
+            fail(f"K6a: no first round of the {what} ({inputs}) was recorded")
+        base, ext, bidx, eidx, scalars, deg = inputs
+        rows.append(k6a_row(f"{what}, first round, the prove's own inputs", base, ext,
+                            bidx.to(torch.int32).contiguous(), eidx.to(torch.int32).contiguous(),
+                            scalars, deg, ptxas))
+    return rows
+
+
+def run_continuations(pk, vm, trace, n: int, keep: dict | None = None) -> tuple:
     """The 2^20 fibonacci as chained shards, on phase 5's key, vm (halted) and
     trace: the AOT preflight's plan against the traced plan, then
     ``prove_shards`` pipelined on DEVICE with spans, the device audit and the
@@ -1434,7 +1471,7 @@ def run_continuations(pk, vm, trace, n: int) -> tuple:
     if torch.device(DEVICE).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     spans.enable()
-    with prove_audit() as seen, sumcheck_calls() as calls:
+    with prove_audit() as seen, sumcheck_calls(keep) as calls:
         reset_launches()
         t0 = time.time()
         sproof = shard.prove_shards(pk, vm, trace, max_steps, device=DEVICE)
@@ -1743,7 +1780,7 @@ def precompile_tampered(proof, h_core: int) -> list:
     return out
 
 
-def run_keccak_loop(n: int, cfg, params) -> tuple:
+def run_keccak_loop(n: int, cfg, params, keep: dict | None = None) -> tuple:
     """Phase 7b: the keccak guest of ``n`` permutations as a user proves it:
     the native core (no fallback), the committed words against keccak-f on
     the host, keygen, one prove with spans, the device audit and the launch
@@ -1771,7 +1808,7 @@ def run_keccak_loop(n: int, cfg, params) -> tuple:
     if torch.device(DEVICE).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     spans.enable()
-    with prove_audit() as seen, sumcheck_calls() as calls:
+    with prove_audit() as seen, sumcheck_calls(keep) as calls:
         reset_launches()
         t0 = time.time()
         proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
@@ -1883,10 +1920,14 @@ def main() -> int:
         t = time.time()
         shard_golden = shard_golden_check()
         golden_s = time.time() - t
-        shard_line, shard_report, shard_counted = run_continuations(pk, vm, trace, E2E_ITERS)
+        kept = {"shard-RAM 2^9 class main": main_shape(SHARD_CLASS_MAIN)}
+        shard_line, shard_report, shard_counted = run_continuations(pk, vm, trace, E2E_ITERS,
+                                                                    kept)
         shard_line["golden"] = shard_golden
         shard_line["seconds"]["golden_check"] = golden_s
         del pk, vm, trace
+        shape_rows += real_k6a_rows(kept, ptxas)
+        del kept
     torch.cuda.empty_cache()
 
     with phase("7 precompiles"):
@@ -1896,11 +1937,14 @@ def main() -> int:
         check_shapes_ran([main_shape(SECP_CLASS_MAIN)], golden["secp"].pop("sumcheck_shapes"),
                          "secp guest's prove")
         # bench.py's ZKVMConfig and BasefoldParams(), as phase 5
+        kept = {"keccak core 2^15 class main": main_shape(KECCAK_CLASS_MAINS[0])}
         pre_line, pre_report, pre_counted, pre_shapes = run_keccak_loop(
-            KECCAK_PERMS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams())
+            KECCAK_PERMS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams(), kept)
         check_shapes_ran([main_shape(cm) for cm in KECCAK_CLASS_MAINS], pre_shapes,
                          "keccak loop's prove")
         pre_line["golden"] = golden
+        shape_rows += real_k6a_rows(kept, ptxas)
+        del kept
 
     with phase("8 report"):
         print(pcs_report, flush=True)

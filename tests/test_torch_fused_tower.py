@@ -27,6 +27,7 @@ from ceno_tpu_torch.fields import babybear as bb
 from ceno_tpu_torch.gkr import tower
 from ceno_tpu_torch.hash.transcript import Transcript
 from ceno_tpu_torch.sumcheck import fused
+from ceno_tpu_torch.sumcheck import prover as sc_prover
 
 torch.set_num_threads(1)
 P = rbb.P
@@ -77,12 +78,18 @@ def test_fused_levels_equal_per_level_and_reference(log_n, monkeypatch):
 
 
 def test_level_tables_pad_into_the_zero_slot():
-    """5 terms pad to 8; the 3 padding terms point at slot n_claims = 4."""
+    """compile_terms pads the 5 terms to 8, with 3 terms of the sentinel
+    column (9) only; the level tables drop them, as they weigh zero, and
+    every term's alpha_idx names one of the n_claims = 4 powers."""
+    padded = sc_prover.compile_terms(
+        [sc_prover.TermSpec(np.array([1, 0, 0, 0], np.uint64), eidx=e)
+         for e in tower._level_terms(2, 1)[1]], 0, 9)[1]
+    assert padded.shape == (8, 3) and padded[5:].tolist() == [[9, 9, 9]] * 3
     bidx, eidx, midx, alpha_idx, deg = tower._level_static(2, 1)
-    assert bidx.shape == (8, 0) and eidx.shape == (8, 3) and deg == 3
-    assert alpha_idx.tolist() == [0, 1, 2, 2, 3, 4, 4, 4]
+    assert bidx.shape == (5, 0) and eidx.shape == (5, 3) and deg == 3
+    assert alpha_idx.tolist() == [0, 1, 2, 2, 3]
     np.testing.assert_array_equal(midx, eidx)  # no base columns: ext k -> k
-    assert eidx[5:].tolist() == [[9, 9, 9]] * 3  # the sentinel column
+    np.testing.assert_array_equal(eidx, padded[:5])
 
 
 def test_diverged_device_sponge_raises(monkeypatch):

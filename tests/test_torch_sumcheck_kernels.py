@@ -102,7 +102,8 @@ def test_round_evals_and_folds_match_plain(lib, shape):
 
 @pytest.mark.parametrize("kind", ["p-1", "0"])
 def test_edge_words(lib, kind):
-    """Banks, scalars and challenge all p - 1, or all 0."""
+    """Banks, scalars and challenge all p - 1, or all 0 (K6a also over
+    several chunks and ranges)."""
     rng = np.random.default_rng(5)
     base, ext = _banks(rng, 3, 3, 64, kind)
     bidx = torch.from_numpy(rng.integers(0, 4, size=(6, 2)).astype(np.int32))
@@ -111,27 +112,168 @@ def test_edge_words(lib, kind):
     out = torch.empty((5, 4), dtype=bb.DTYPE)
     T.launch_round_evals(lib, None, base, ext, bidx, eidx, scalars, 4, out)
     assert torch.equal(out, T.round_evals_plain(base, ext, bidx, eidx, scalars, deg=4))
+    _evals_equal(lib, base, ext, bidx, eidx, scalars, 4, t_lanes=4, ranges=2)
     mixed = torch.empty((4, 7, 32), dtype=bb.DTYPE)
     T.launch_fold(lib, None, base, ext, r, mixed)
     assert torch.equal(mixed, T.fold_banks_plain(base, ext, r))
 
 
 def test_round_evals_grid_stride(lib):
-    """Fewer blocks than the half-cube needs: each thread takes several
-    elements (the card's case above 2^18 elements a half)."""
+    """Fewer element ranges than the half-cube has elements a thread: each
+    thread takes several elements (the card's case at every large
+    half-cube)."""
     rng = np.random.default_rng(6)
     base, ext = _banks(rng, 2, 2, 4096)
     bidx = torch.from_numpy(rng.integers(0, 3, size=(5, 2)).astype(np.int32))
     eidx = torch.from_numpy(rng.integers(0, 3, size=(5, 1)).astype(np.int32))
     scalars = _words(rng, (4, 5))
     want = T.round_evals_plain(base, ext, bidx, eidx, scalars, deg=3)
-    for blocks in (1, 3):
+    for ranges in (1, 3):
+        plan = T.round_evals_plan(2048, 5, 2, 1, ranges=ranges)
+        assert plan.ranges == ranges and plan.e_lanes == 51
         out = torch.empty((4, 4), dtype=bb.DTYPE)
-        partial = torch.empty(blocks * 16, dtype=bb.DTYPE)
-        rc = lib.sc_round_evals(base.data_ptr(), ext.data_ptr(), bidx.data_ptr(),
-                                eidx.data_ptr(), scalars.data_ptr(), partial.data_ptr(),
-                                out.data_ptr(), 4096, 3, 5, 2, 1, 3, blocks, None)
-        assert rc == 0 and torch.equal(out, want)
+        T.launch_round_evals(lib, None, base, ext, bidx, eidx, scalars, 3, out, plan=plan)
+        assert torch.equal(out, want)
+
+
+def _terms(rng, cb, ce, t, db, de):
+    bidx = torch.from_numpy(rng.integers(0, cb + 1, size=(t, db)).astype(np.int32))
+    eidx = torch.from_numpy(rng.integers(0, ce + 1, size=(t, de)).astype(np.int32))
+    return bidx, eidx, _words(rng, (4, t))
+
+
+def _evals_equal(lib, base, ext, bidx, eidx, scalars, deg, **plan):
+    """K6a under the plan with ``plan``'s overrides equals the plain version."""
+    db = bidx.shape[1]
+    p = T.eval_plan(ext, bidx, eidx, **plan)
+    out = torch.empty((deg + 1, 4), dtype=bb.DTYPE)
+    T.launch_round_evals(lib, None, base if db else None, ext, bidx, eidx, scalars, deg, out,
+                         plan=p)
+    assert torch.equal(out, T.round_evals_plain(base, ext, bidx, eidx, scalars, deg=deg)), p
+    return p
+
+
+# (Cb, Ce, N, T, DB, DE, deg, t_lanes, ranges): plans that force several
+# term chunks (t_lanes below T) and several element ranges, some of them with
+# fewer elements than threads a term, a block's last chunk short
+PLANS = [(3, 4, 512, 23, 1, 2, 3, 4, 3), (3, 4, 512, 23, 1, 2, 3, 23, 40),
+         (0, 6, 256, 10, 0, 3, 3, 3, 5), (0, 6, 256, 10, 0, 3, 3, 10, 2),
+         (5, 1, 128, 40, 3, 1, 4, 7, 1), (5, 1, 128, 40, 3, 1, 4, 1, 4),
+         (2, 2, 64, 9, 2, 2, 2, 32, 2), (4, 0, 32, 17, 2, 1, 5, 64, 2)]
+
+
+@pytest.mark.parametrize("shape", PLANS)
+def test_round_evals_forced_plans(lib, shape):
+    cb, ce, n, t, db, de, deg, t_lanes, ranges = shape
+    rng = np.random.default_rng(list(shape))
+    base, ext = _banks(rng, cb, ce, n)
+    bidx, eidx, scalars = _terms(rng, cb, ce, t, db, de)
+    p = _evals_equal(lib, base, ext, bidx, eidx, scalars, deg, t_lanes=t_lanes, ranges=ranges)
+    assert (p.chunks, p.ranges, p.e_lanes) == (-(-t // t_lanes), ranges,
+                                               min(T.THREADS // t_lanes, n // 2))
+
+
+def test_round_evals_two_rows_many_terms(lib):
+    """A 2-row bank (one element) with 3,000 terms over 600 base columns, as
+    the secp guest's class: the terms spread over 12 chunks of 256 threads."""
+    rng = np.random.default_rng(11)
+    base, ext = _banks(rng, 600, 7, 2)
+    bidx, eidx, scalars = _terms(rng, 600, 7, 3000, 2, 1)
+    p = _evals_equal(lib, base, ext, bidx, eidx, scalars, 3)
+    assert (p.t_lanes, p.e_lanes, p.chunks) == (250, 1, 12)
+
+
+@pytest.mark.parametrize("ranges", [1, 3])
+def test_round_evals_degree_8(lib, ranges):
+    """Degree 8 with DB 7 and DE 1 (the shard-RAM chips' class main), over
+    several chunks and ranges."""
+    rng = np.random.default_rng(12)
+    base, ext = _banks(rng, 20, 2, 128)
+    bidx, eidx, scalars = _terms(rng, 20, 2, 70, 7, 1)
+    _evals_equal(lib, base, ext, bidx, eidx, scalars, 8, t_lanes=16, ranges=ranges)
+
+
+def test_tower_level_without_padding_terms(lib):
+    """The fused tower's level table (``tower._level_static``: 10 terms of
+    add's and addi's 4 products and 2 LogUps) against compile_terms' padded
+    one (16 terms, the padding's scalar the zero slot after the alpha
+    powers): K6a gives the same first-round message, and every round of the
+    level (``fused.run_rounds``, plain on the CPU) the same messages."""
+    from ceno_tpu_torch.gkr import tower
+    from ceno_tpu_torch.sumcheck import prover as sc_prover
+
+    n_prod, n_logup, log_n = 4, 2, 6
+    bidx, eidx, midx, alpha_idx, deg = tower._level_static(n_prod, n_logup)
+    n_ext, n_claims = 1 + 2 * n_prod + 4 * n_logup, n_prod + 2 * n_logup
+    one = np.array([1, 0, 0, 0], np.uint64)
+    pbidx, peidx, _, pdeg = sc_prover.compile_terms(
+        [sc_prover.TermSpec(one, eidx=e) for e in tower._level_terms(n_prod, n_logup)[1]],
+        0, n_ext)
+    palpha = np.concatenate([alpha_idx, np.full(len(peidx) - len(alpha_idx), n_claims)])
+    assert (len(eidx), len(peidx), pdeg) == (10, 16, deg)
+    rng = np.random.default_rng(13)
+    pows = torch.zeros((4, n_claims + 1), dtype=bb.DTYPE)
+    pows[:, :n_claims] = _words(rng, (4, n_claims))
+    base, ext = _banks(rng, 0, n_ext, 1 << log_n)
+    tables = [(bidx, eidx, midx, alpha_idx),
+              (pbidx, peidx, T.merge_indices(pbidx, peidx, 0, n_ext), palpha)]
+    firsts, msgs = [], []
+    for bi, ei, mi, ai in tables:
+        bi, ei, mi = (torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (bi, ei, mi))
+        scalars = pows[:, torch.from_numpy(np.asarray(ai))].contiguous()
+        out = torch.empty((deg + 1, 4), dtype=bb.DTYPE)
+        T.launch_round_evals(lib, None, None, ext, bi, ei, scalars, deg, out)
+        firsts.append(out)
+        m = torch.empty((log_n, deg + 1, 4), dtype=bb.DTYPE)
+        dpx = fused._DeviceDuplex(torch.zeros(16, dtype=bb.DTYPE), 0, 0, False)
+        fused.run_rounds(base, ext, bi, ei, mi, scalars, dpx, m,
+                         [torch.empty(4, dtype=bb.DTYPE) for _ in range(log_n)], deg=deg)
+        msgs.append(m)
+    assert torch.equal(firsts[0], firsts[1]) and torch.equal(msgs[0], msgs[1])
+    assert torch.equal(firsts[0], msgs[0][0])
+
+
+def _plan_cover(plan, half: int, t: int) -> tuple:
+    """How often the kernel's index arithmetic visits each term and each
+    element of the half-cube under ``plan`` (a thread visits its slot's term
+    at its lane's elements): (counts (T,), counts (half,))."""
+    terms_seen = np.zeros(max(t, 1), np.int64)
+    for x in range(plan.chunks):
+        for slot in range(plan.t_lanes):
+            if x * plan.t_lanes + slot < t:
+                terms_seen[x * plan.t_lanes + slot] += 1
+    elems = np.zeros(half, np.int64)
+    span = -(-half // plan.ranges)
+    for y in range(plan.ranges):
+        start, end = y * span, min(y * span + span, half)
+        for lane in range(plan.e_lanes):
+            elems[np.arange(start + lane, end, plan.e_lanes)] += 1
+    return terms_seen[:t], elems
+
+
+# (half, T, DB, DE): the main path's first rounds (tower level 21, the 2^19
+# and 2^18 class mains, shard-RAM, the EC-sum quark, keccak core, keccak
+# ecall, secp) and later rounds, a few small banks
+PLAN_SHAPES = [(1 << 20, 10, 0, 3), (1 << 18, 83, 2, 1), (1 << 17, 215, 3, 1),
+               (256, 3289, 7, 1), (256, 455, 2, 1), (1 << 14, 5376, 2, 1), (512, 1274, 3, 1),
+               (1, 39422, 2, 1), (1 << 17, 83, 0, 3), (1 << 16, 215, 0, 4), (1, 1, 0, 2),
+               (3, 0, 1, 1), (1000, 7, 9, 7)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_round_evals_plan_limits_and_cover(shape):
+    half, t, db, de = shape
+    plan = T.round_evals_plan(half, t, db, de)
+    assert 1 <= plan.t_lanes and 1 <= plan.e_lanes and plan.t_lanes * plan.e_lanes <= T.THREADS
+    assert plan.t_lanes * (db + de) <= T.TABLE_WORDS
+    assert 1 <= plan.chunks < 1 << 31 and 1 <= plan.ranges <= T.MAX_RANGES
+    assert plan.blocks < T.TARGET_BLOCKS + plan.chunks
+    terms_seen, elems = _plan_cover(plan, half, t)
+    assert (terms_seen == 1).all() and (elems == 1).all()
+    if half >= 1 << 14:  # a long bank fills the card from its elements
+        assert plan.blocks >= T.TARGET_BLOCKS // 2
+    if t * half >= 1 << 19:  # enough work fills every streaming multiprocessor
+        assert plan.blocks >= 132
 
 
 @pytest.mark.parametrize("absorbed", [False, True])
@@ -192,10 +334,18 @@ def test_limits_raise(lib):
     with pytest.raises(ValueError, match="challenge"):
         T.launch_fold(lib, None, base, ext, sc[:, 0].contiguous()[:3],
                       torch.empty((4, 5, 4), dtype=bb.DTYPE))
-    rc = lib.sc_round_evals(base.data_ptr(), ext.data_ptr(), idx.data_ptr(), idx.data_ptr(),
-                            sc.data_ptr(), out.data_ptr(), out.data_ptr(), 8, 3, 3, 1, 1,
-                            T.MAX_DEG + 1, 1, None)
-    assert rc == 1
+    ptrs = (base.data_ptr(), ext.data_ptr(), idx.data_ptr(), idx.data_ptr(), sc.data_ptr(),
+            out.data_ptr(), out.data_ptr())
+    # deg, then the plan: t_lanes, e_lanes, chunks, ranges
+    good = (3, 3, 4, 1, 1)
+    assert lib.sc_round_evals(*ptrs, 8, 3, 3, 3, 1, 1, *good, None) == 0
+    for bad in ((T.MAX_DEG + 1, 3, 4, 1, 1),  # degree
+                (3, 3, 100, 1, 1),            # t_lanes * e_lanes > THREADS
+                (3, 1, 4, 2, 1),              # chunks * t_lanes < T
+                (3, 3, 4, 0, 1),              # no chunk
+                (3, 3, 4, 1, T.MAX_RANGES + 1),
+                (3, 3000, 1, 1, 1)):          # a factor table beyond TABLE_WORDS
+        assert lib.sc_round_evals(*ptrs, 8, 3, 3, 3, 1, 1, *bad, None) == 1, bad
     assert lib.sc_duplex(base.data_ptr(), None, 0, None, None, 0, 0, p2.RATE + 1, 0, 0,
                          None) == 1
 
@@ -238,3 +388,74 @@ def test_round_evals_take_the_ec_quark_terms(lib):
     T.launch_round_evals(lib, None, None, merged, torch.zeros((len(live), 0), dtype=torch.int32),
                          midx, scalars, deg, out)
     assert torch.equal(out, T.round_evals_ext_plain(merged, midx, scalars, deg=deg))
+
+
+def test_chip_smoke_k6a_rows_on_the_cpu(monkeypatch):
+    """chip_smoke's phase-2 sumcheck checks rehearsed on the CPU at small
+    heights (the wrappers run their plain versions here): every K6a row
+    carries the plan the wrapper takes and its kernel's ptxas key."""
+    import time
+
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn, reps: (fn(), 1.0)[1])
+
+    def wall_ms(fn):
+        t = time.perf_counter()
+        return fn(), (time.perf_counter() - t) * 1e3
+    monkeypatch.setattr(cs, "wall_ms", wall_ms)
+    monkeypatch.setattr(cs, "TOWER_LOG_N", 4)
+    monkeypatch.setattr(cs, "QUARK_LOG_N", 3)
+    for name in ("CLASS_MAINS", "PRECOMPILE_CLASS_MAINS"):
+        monkeypatch.setattr(cs, name, [dict(cm, log_n=min(cm["log_n"], 3))
+                                       for cm in getattr(cs, name)])
+    monkeypatch.setattr(cs, "SHARD_CLASS_MAIN", dict(cs.SHARD_CLASS_MAIN, log_n=3))
+    kernels, rows = cs.sumcheck_kernels_vs_plain(np.random.default_rng(1), {})
+    assert [k["name"] for k in kernels] == ["round_evals", "fold", "duplex"]
+    k6a = [r for r in rows if r["name"] == "round_evals"]
+    assert len(k6a) == 8 and all(r["max_abs_err"] == 0 for r in k6a)
+    assert k6a[0]["plan"]["t_lanes"] * k6a[0]["plan"]["chunks"] == 10  # the tower's live terms
+    for r in k6a:
+        (key,) = r["ptxas"]
+        assert re.fullmatch(r"round_evals_kernel<\d>", key)
+
+
+def test_chip_smoke_reads_ptxas_of_template_kernels():
+    import chip_smoke as cs
+
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118round_evals_kernelILi8EEEvPKjS2_PKiS4_S2_Pjliiiiiii' for 'sm_90a'
+ptxas info    : Used 96 registers, used 0 barriers, 40960 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125round_evals_reduce_kernelILi3EEEvPKjPjl' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125round_evals_reduce_kernelILi3EEEvPKjPjl
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 40 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111fold_kernelEPKjS1_S1_Pjlii' for 'sm_90a'
+ptxas info    : Used 30 registers"""
+    assert cs.ptxas_by_kernel(log) == {
+        "round_evals_kernel<8>": {"registers": 96},
+        "round_evals_reduce_kernel<3>": {"spill_stores": 8, "spill_loads": 8, "registers": 40},
+        "fold_kernel": {"registers": 30}}
+
+
+def test_chip_smoke_keeps_a_first_rounds_inputs():
+    """``sumcheck_calls(keep)`` hands back the banks and tables of the first
+    call of each kept shape (phases 6 and 7 time K6a on them)."""
+    import chip_smoke as cs
+    from ceno_tpu_torch.sumcheck import prover as sc_prover
+
+    rng = np.random.default_rng(14)
+    base_cols = list(_words(rng, (3, 8)))
+    term_list = [sc_prover.TermSpec(rng.integers(1, P, size=4, dtype=np.uint64), bidx=(i % 3,),
+                                    eidx=(0,)) for i in range(5)]
+    shape = {"base": [4, 8], "ext": [4, 2, 8], "terms": 5, "db": 1, "de": 1, "deg": 2,
+             "live": 5}
+    kept = {"toy": shape, "absent": dict(shape, terms=6)}
+    with cs.sumcheck_calls(kept) as calls:
+        sc_prover.prove(base_cols, [_words(rng, (4, 8))], term_list, 3,
+                        Transcript(b"toy"))
+    assert cs.first_rounds(calls) == [shape]
+    base, ext, bidx, eidx, scalars, deg = kept["toy"]
+    assert tuple(base.shape) == (4, 8) and tuple(bidx.shape) == (5, 1) and deg == 2
+    assert kept["absent"] == dict(shape, terms=6)
+    assert torch.equal(base[:3], torch.stack(base_cols))
