@@ -1,9 +1,10 @@
-// The Poseidon2-16 permutation over BabyBear for one thread, shared by the
-// port's CUDA kernels (csrc/poseidon2_merkle.cu, csrc/sumcheck.cu).
+// The Poseidon2-16 permutation over BabyBear, shared by the port's CUDA
+// kernels: `permute` for one thread (csrc/poseidon2_merkle.cu, K1 and K2) and
+// `permute_warp` spread over the lanes of one warp (csrc/sumcheck.cu, K5/K7).
 //
 // The tables are the Montgomery forms of RC_EXTERNAL, RC_INTERNAL and
 // INTERNAL_DIAG in ceno_tpu_torch/hash/poseidon2.py (checked, with MONTY_15,
-// by tests/test_torch_poseidon2.py). The permutation keeps one state of 16
+// by tests/test_torch_poseidon2.py). `permute` keeps one state of 16
 // Montgomery words in registers; the design of its rounds (lazy [0, 2p)
 // operands, the 11-addition M4, the internal rounds' running sum) is set out
 // in csrc/poseidon2_merkle.cu. Do not put `#pragma unroll` on the round
@@ -150,6 +151,90 @@ __device__ __forceinline__ void permute(uint32_t (&st)[WIDTH]) {
 #pragma unroll
   for (int i = 1; i < WIDTH; ++i) st[i] = reduce(st[i]);
   for (int r = ROUNDS_F / 2; r < ROUNDS_F; ++r) external_round(st, r);
+}
+
+// The permutation spread over one warp, for a single sponge whose latency is
+// all that counts (the duplex of csrc/sumcheck.cu). Lane l holds state word
+// i = l & 15 in one register; lanes 16-31 mirror lanes 0-15, so all 32 lanes
+// run one instruction stream and every shuffle stays inside its half. A lane
+// runs its own word's S-box and products; a sum over words is a shuffle
+// reduction. All 32 lanes call these functions together, in warp-uniform
+// control flow, and every value between steps is canonical, in [0, p).
+//
+// The internal rounds depend on one word's S-box in turn: every lane keeps
+// its own copy z of word 0 and runs that round's S-box on it, while four xor
+// shuffles sum words 1..15, so no broadcast is waited for and a round is as
+// deep as the longer of the S-box and the reduction.
+
+constexpr unsigned WARP_ALL = 0xffffffffu;
+
+// x^7 three products deep: x^2, then x^3 and x^4 side by side, then x^4 x^3;
+// x in [0, p) -> [0, p) (x^4 in [0, 2p), 2p * p < p * 2^32)
+__device__ __forceinline__ uint32_t sbox_warp(uint32_t x) {
+  const uint32_t x2 = mmul(x, x);
+  const uint32_t x3 = mmul(x2, x);
+  const uint32_t x4 = mmul_lazy(x2, x2);
+  return mmul(x4, x3);
+}
+
+// The external layer circ(2 M4, M4, M4, M4) on the lane's word. M4 is
+// circulant (rows (2, 3, 1, 1) rotated), so row k of a block is the block's
+// sum + x_k + 2 x_{k+1}: three shuffles in the block of four lanes. Then each
+// word adds its column's sum over the four blocks: xor shuffles by 4 and 8.
+__device__ __forceinline__ uint32_t external_linear_warp(uint32_t x, int lane) {
+  const uint32_t next = __shfl_sync(WARP_ALL, x, (lane & ~3) | ((lane + 1) & 3));
+  uint32_t s = add(x, __shfl_xor_sync(WARP_ALL, x, 1));
+  s = add(s, __shfl_xor_sync(WARP_ALL, s, 2));
+  const uint32_t y = add(add(s, x), dbl(next));
+  uint32_t c = add(y, __shfl_xor_sync(WARP_ALL, y, 4));
+  c = add(c, __shfl_xor_sync(WARP_ALL, c, 8));
+  return add(y, c);
+}
+
+// External rounds r0 .. r0 + 3. A lane's round constant is its word's, a
+// different address in each of 16 lanes (the constant cache serves them one
+// after the other), so it is fetched a round ahead.
+__device__ __forceinline__ uint32_t external_rounds_warp(uint32_t x, int lane, int r0) {
+  const int i = lane & (WIDTH - 1);
+  uint32_t rc = RC_EXT[r0][i];
+  for (int r = r0; r < r0 + ROUNDS_F / 2; ++r) {
+    const uint32_t next = RC_EXT[r + 1 < ROUNDS_F ? r + 1 : r][i];
+    x = external_linear_warp(sbox_warp(add(x, rc)), lane);
+    rc = next;
+  }
+  return x;
+}
+
+// The 13 internal rounds: word i' = s + DIAG[i] * word i, where word 0 first
+// goes through the S-box and s is the sum of all 16 words after it. diag is
+// DIAG[lane & 15].
+__device__ __forceinline__ uint32_t internal_rounds_warp(uint32_t x, uint32_t diag, int lane) {
+  const int i = lane & (WIDTH - 1);
+  uint32_t z = __shfl_sync(WARP_ALL, x, 0, WIDTH);  // word 0, in every lane
+  uint32_t rc = RC_INT[0];
+  for (int r = 0; r < ROUNDS_P; ++r) {
+    const uint32_t rc_next = RC_INT[r + 1 < ROUNDS_P ? r + 1 : r];
+    const uint32_t s0 = sbox_warp(add(z, rc));
+    uint32_t rest = i == 0 ? 0u : x;  // words 1..15, summed while the S-box runs
+    rest = add(rest, __shfl_xor_sync(WARP_ALL, rest, 1));
+    rest = add(rest, __shfl_xor_sync(WARP_ALL, rest, 2));
+    rest = add(rest, __shfl_xor_sync(WARP_ALL, rest, 4));
+    rest = add(rest, __shfl_xor_sync(WARP_ALL, rest, 8));
+    const uint32_t s = add(s0, rest);
+    z = add(mmul(s0, DIAG[0]), s);
+    x = add(mmul(x, diag), s);  // lane 0's and 16's: unused, z holds word 0
+    rc = rc_next;
+  }
+  return i == 0 ? z : x;
+}
+
+// The permutation of the state that the warp holds, lane l's word l & 15;
+// diag is DIAG[lane & 15].
+__device__ __forceinline__ uint32_t permute_warp(uint32_t x, uint32_t diag, int lane) {
+  x = external_linear_warp(x, lane);
+  x = external_rounds_warp(x, lane, 0);
+  x = internal_rounds_warp(x, diag, lane);
+  return external_rounds_warp(x, lane, ROUNDS_F / 2);
 }
 
 }  // namespace

@@ -22,11 +22,12 @@
 // node one ext product by the term's scalar; it needs each column word once
 // from device memory. At the main path's shapes it is bound by the integer
 // multiplies, as the Poseidon2 kernels are (PERF.md has its bound and time).
-// K6b reads and writes each word once: bound by bytes. K5/K7 is one thread
-// on one 16-word sponge: bound by the latency of its permutations (about
-// three a round for a deg-3 message), which is why it exists at all: it
-// keeps the fused loop on the card without a round trip to the host per
-// round.
+// K6b reads and writes each word once: bound by bytes. K5/K7 works on one
+// 16-word sponge: a few hundred bytes and a few permutations a launch, so no
+// bound of bytes or operations binds it, but the latency of its dependent
+// chain (the loads, then each permutation after the one before, then the
+// stores) and the launch itself. It exists to keep the fused loop on the
+// card without a round trip to the host per round.
 //
 // Design:
 // - K6a: a grid of term chunks (x) by ranges of the half-cube (y), its plan
@@ -59,14 +60,25 @@
 //   loop never brings it to the host. Mixed mode (base and ext banks in, the
 //   merged ext bank out) drops the base sentinel and keeps the ext one, as
 //   ceno_tpu_torch/sumcheck/terms.py fold_banks does.
-// - K5/K7: one thread loads the sponge state, absorbs n words (add into
-//   state[pos], permute when pos reaches RATE), then samples one ext
-//   challenge (permute first when anything was absorbed since the last
-//   permutation, or the squeeze window is used up) and writes it, and
-//   optionally the challenge's powers alpha^0 .. alpha^(k-1), to device
-//   memory: the rules of ceno_tpu_torch/hash/transcript.py. The absorb and
-//   sample sequence is fixed, so the host keeps pos, sq_pos and absorbed and
-//   passes them in.
+// - K5/K7: one warp, <<<1, 32>>>. It absorbs n words (add into word pos,
+//   permute when pos reaches RATE), then samples one ext challenge (permute
+//   first when anything was absorbed since the last permutation, or the
+//   squeeze window is used up) and writes it, and optionally the challenge's
+//   powers alpha^0 .. alpha^(k-1), to device memory: the rules of
+//   ceno_tpu_torch/hash/transcript.py. The absorb and sample sequence is
+//   fixed, so the host keeps pos, sq_pos and absorbed and passes them in.
+//   Against the latency: the state and every absorbed word are loaded at
+//   the start, all at once and coalesced (the words into shared memory, up
+//   to DUPLEX_TILE of them; a longer absorb takes them a tile at a time), so
+//   no device-memory read waits between two permutations; lane i holds
+//   state word i in a register (lanes 16-31 a copy), never an array indexed
+//   at run time, and the permutation runs on the 16 lanes
+//   (csrc/poseidon2.cuh permute_warp), each lane its own word's S-box and
+//   products; a chunk of words goes into the state at once, each lane
+//   adding the word that falls on its slot; lane i computes alpha^i by a
+//   prefix product over the lanes (five ext products deep), and the powers
+//   past 32 follow by alpha^32. Every shuffle is in warp-uniform control
+//   flow.
 //
 // Every value a kernel stores is canonical, in [0, p). Kernels launch on the
 // caller's stream and allocate nothing; each C entry point returns
@@ -88,6 +100,7 @@ constexpr int MAX_DEG = 8;       // terms of at most 8 factors (div's and the sh
 constexpr int MAX_FACTORS = 16;  // DB + DE
 constexpr int TABLE_WORDS = 2048;  // K6a: a chunk's factor rows, t_lanes * (DB + DE) words
 constexpr int MAX_RANGES = 65535;  // K6a: element ranges (the grid's second axis)
+constexpr int DUPLEX_TILE = 1024;  // K5/K7: absorbed words staged in shared memory at once
 
 __device__ __forceinline__ Ext ext_load(const uint32_t* __restrict__ bank, int64_t comp,
                                         int64_t at) {
@@ -339,52 +352,79 @@ fold_kernel(const uint32_t* __restrict__ base, const uint32_t* __restrict__ ext,
   }
 }
 
-// K5/K7, one thread: absorb n_in words into the sponge, then (when out is not
+__device__ __forceinline__ Ext ext_shfl(Ext v, int src) {
+  return {__shfl_sync(WARP_ALL, v.c0, src), __shfl_sync(WARP_ALL, v.c1, src),
+          __shfl_sync(WARP_ALL, v.c2, src), __shfl_sync(WARP_ALL, v.c3, src)};
+}
+
+// K5/K7, one warp: absorb n_in words into the sponge, then (when out is not
 // null) sample one ext challenge into out[0..3] and (when pows is not null)
-// write its powers alpha^i into pows[c * pow_stride + i], i < n_pows.
-__global__ void __launch_bounds__(1)
+// write its powers alpha^i into pows[c * pow_stride + i], i < n_pows. Every
+// loop and every branch around a shuffle or a permutation depends on the
+// arguments only, so the warp takes it together.
+__global__ void __launch_bounds__(32)
 duplex_kernel(uint32_t* __restrict__ state, const uint32_t* __restrict__ in, int n_in,
               uint32_t* __restrict__ out, uint32_t* __restrict__ pows, int n_pows,
               int64_t pow_stride, int pos, int sq_pos, int absorbed) {
-  uint32_t st[WIDTH];
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) st[j] = state[j];
-  for (int j = 0; j < n_in; ++j) {
-    if (pos == RATE) {
-      permute(st);
-      pos = 0;
+  __shared__ uint32_t words[DUPLEX_TILE];
+  const int lane = threadIdx.x, i = lane & (WIDTH - 1);
+  uint32_t x = state[i];
+  const uint32_t diag = DIAG[i];
+  for (int t0 = 0; t0 < n_in; t0 += DUPLEX_TILE) {
+    const int n = n_in - t0 < DUPLEX_TILE ? n_in - t0 : DUPLEX_TILE;
+    __syncwarp();  // the last tile is read
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32) words[k] = __ldg(in + t0 + k);
+    __syncwarp();
+    // chunks of up to RATE - pos words, word j + (i - pos) on slot i
+    for (int j = 0; j < n;) {
+      if (pos == RATE) {
+        x = permute_warp(x, diag, lane);
+        pos = 0;
+      }
+      const int m = RATE - pos < n - j ? RATE - pos : n - j;
+      if (i >= pos && i < pos + m) x = add(x, words[j + i - pos]);
+      pos += m;
+      j += m;
     }
-    st[pos] = add(st[pos], in[j]);
-    ++pos;
     absorbed = 1;
   }
   if (out != nullptr) {
-    uint32_t v[4];
+    uint32_t c = 0u;  // lane q < 4: challenge word q
     for (int q = 0; q < 4; ++q) {
       if (absorbed || sq_pos == RATE) {  // (the host sets pos to 0 here too)
-        permute(st);
+        x = permute_warp(x, diag, lane);
         sq_pos = 0;
         absorbed = 0;
       }
-      v[q] = st[sq_pos];
+      const uint32_t w = __shfl_sync(WARP_ALL, x, sq_pos);
+      c = lane == q ? w : c;
       ++sq_pos;
     }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) out[q] = v[q];
-    if (pows != nullptr) {
-      const Ext a = {v[0], v[1], v[2], v[3]};
-      Ext cur = {MONTY_ONE, 0u, 0u, 0u};
-      for (int i = 0; i < n_pows; ++i) {
-        pows[i] = cur.c0;
-        pows[pow_stride + i] = cur.c1;
-        pows[2 * pow_stride + i] = cur.c2;
-        pows[3 * pow_stride + i] = cur.c3;
-        cur = ext_mul(cur, a);
+    if (lane < 4) out[lane] = c;
+    if (pows != nullptr && n_pows > 0) {
+      const Ext a = {__shfl_sync(WARP_ALL, c, 0), __shfl_sync(WARP_ALL, c, 1),
+                     __shfl_sync(WARP_ALL, c, 2), __shfl_sync(WARP_ALL, c, 3)};
+      // lane l: the product of lane 0's one and lanes 1..l's alpha = alpha^l
+      Ext p = lane == 0 ? Ext{MONTY_ONE, 0u, 0u, 0u} : a;
+      for (int d = 1; d < 32; d <<= 1) {
+        const Ext below = ext_shfl(p, lane >= d ? lane - d : lane);
+        const Ext prod = ext_mul(p, below);
+        p = lane >= d ? prod : p;
+      }
+      const Ext a32 = ext_mul(ext_shfl(p, 31), a);
+      for (int b = 0; b < n_pows; b += 32) {
+        if (b + lane < n_pows) {
+          pows[b + lane] = p.c0;
+          pows[pow_stride + b + lane] = p.c1;
+          pows[2 * pow_stride + b + lane] = p.c2;
+          pows[3 * pow_stride + b + lane] = p.c3;
+        }
+        if (b + 32 < n_pows) p = ext_mul(p, a32);
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) state[j] = st[j];
+  if (lane < WIDTH) state[lane] = x;
 }
 
 }  // namespace
@@ -451,7 +491,7 @@ extern "C" int sc_fold(const void* base, const void* ext, const void* r, void* o
 // written in place): absorb in[0 .. n_in), then, when out is not null, sample
 // one ext challenge into out and, when pows is not null, its n_pows powers.
 // pos, sq_pos in [0, 8] and absorbed in {0, 1} are the host's bookkeeping
-// before the step.
+// before the step. One block of one warp.
 extern "C" int sc_duplex(void* state, const void* in, int n_in, void* out, void* pows,
                          int n_pows, int64_t pow_stride, int pos, int sq_pos, int absorbed,
                          void* stream) {
@@ -459,7 +499,7 @@ extern "C" int sc_duplex(void* state, const void* in, int n_in, void* out, void*
       sq_pos < 0 || sq_pos > RATE || (absorbed != 0 && absorbed != 1) || n_pows < 0 ||
       (pows != nullptr && (out == nullptr || pow_stride < n_pows)))
     return static_cast<int>(cudaErrorInvalidValue);
-  duplex_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+  duplex_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(state), static_cast<const uint32_t*>(in), n_in,
       static_cast<uint32_t*>(out), static_cast<uint32_t*>(pows), n_pows, pow_stride, pos, sq_pos,
       absorbed);

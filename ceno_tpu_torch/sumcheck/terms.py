@@ -69,8 +69,9 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The built kernel library with its C signatures declared (first use
-    builds it)."""
+    """The built kernel library with its C signatures declared. The first
+    call builds and loads it and declares the signatures once; every launch
+    of K6a, K6b and K5/K7 gets the cached handle."""
     return declare(cuda_build.load("sumcheck"))
 
 

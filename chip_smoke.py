@@ -22,13 +22,18 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      the GKR stages run them): K6a and K6b (mixed and ext mode) at the first
      round of tower level 21 of the 2^22 group, with the fused tower's own
      term table, and of the 2^19 and 2^18 class mains; K5/K7 from every
-     pos, sq_pos 0, 4 or 8, absorbed or not, and timed over a round's step;
+     pos, sq_pos 0, 4 or 8, absorbed or not, with absorbs of up to 96 words
+     and up to 70 powers, and timed at the fibonacci prove's steps
+     (``DUPLEX_STEPS``: a degree-3 and a degree-4 round, the tower's alpha
+     with its powers, a tower level's evals; phase 5 checks that its prove
+     makes them) as CUDA graphs of 200 launches, so the host's pace is not
+     in the time;
      K6a and K6b also at the shard-RAM class main and the EC-sum quark
      (phase 6 runs them) and at the precompile class mains
      (``PRECOMPILE_CLASS_MAINS``: the keccak core's 2^15 class, the keccak
      ecall's 2^10 class, the secp guest's 2-row class; phase 7 runs them);
-     with ptxas's registers and spills for each, and for K6a the launch plan
-     its wrapper chose (``terms.round_evals_plan``);
+     with ptxas's registers, stack frame and spills for each, and for K6a
+     the launch plan its wrapper chose (``terms.round_evals_plan``);
   3. the PCS slice end to end with the default BasefoldParams: commit, open
      and verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack,
      each with one random ext4 point per height class and the true MLE value
@@ -55,9 +60,11 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      at bench.py's ``ZKVMConfig(shl_x_bits=10)`` and ``BasefoldParams()``
      (its stacked fixed matrix must have the content key that names the
      golden file, and its fixed codeword, leaves, levels and root must equal
-     the file's), a first ``prove``, a second one with spans on and every
-     witness commit, record, tower layer and sumcheck bank checked to lie on
-     the card, then ``verify`` (the kernels' launch counts are reset just
+     the file's), a first ``prove`` (its K5/K7 steps counted by words and
+     powers: phase 2's ``DUPLEX_STEPS`` must be among them), a second one
+     with spans on and every witness commit, record, tower layer and
+     sumcheck bank checked to lie on the card, then ``verify`` (the
+     kernels' launch counts are reset just
      before keygen and before the second prove, and read just after each:
      K1, K2, K6a, K6b and K5/K7);
      both proofs must be the same bytes, and a changed public value,
@@ -232,6 +239,22 @@ SECP_CLASS_MAIN = {"what": "secp guest", "chips": ("lw", "halt", "secp256k1_add"
                    "log_n": 1, "base": 3094, "ext": 7, "terms": 39422, "db": 2, "de": 1,
                    "deg": 3}
 PRECOMPILE_CLASS_MAINS = KECCAK_CLASS_MAINS + [SECP_CLASS_MAIN]
+# K5/K7's steps in the 2^20-step fibonacci prove, whose shapes phase 2 times
+# it at (phase 5 checks that its first prove makes each): (what, words
+# absorbed, powers). Each starts where the prove's do, after a sample: pos 0,
+# sq_pos 4, nothing absorbed since (DUPLEX_FROM). A degree-3 round's message
+# (16 words: 2 permutations), a degree-4 one's (20: 3), the fused tower's
+# alpha with its powers (the sample before left four words: no
+# permutation; 12 powers, the n_claims = 4 + 2 * 4 of the 2^4 group (lui,
+# halt, program, range4), the most of the prove's tower groups) and a tower
+# level's end absorbing that group's S_e = 24 evals (96 words: 12).
+DUPLEX_STEPS = [("a degree-3 round's step", 16, 0), ("a degree-4 round's step", 20, 0),
+                ("the tower's alpha and its 12 powers", 0, 12),
+                ("a tower level's 24 evals (2^4 group)", 96, 0)]
+DUPLEX_FROM = (0, 4, False)  # pos, sq_pos, absorbed
+# phase 2's check from every state: words absorbed and powers, cycled over
+# the states, beside a round's 16 words and 5 powers at each
+DUPLEX_CHECKS = [(70, 70), (33, 33), (0, 32), (64, 31), (1, 1), (20, 0), (96, 12)]
 MULS_PER_PRODUCT = 3  # 32-bit multiplies of one Montgomery product
 EXT_PRODUCTS = 16     # base products of one ext4 product (the x^4 = 11 wrap adds none)
 
@@ -282,6 +305,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, n: int = 200) -> float:
+    """Device time of one ``fn()`` without the host's pacing: ``n`` calls
+    captured in one CUDA graph, which is replayed between two events (after
+    a warm-up call and a warm-up replay); the mean per call."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(n):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def wall_ms(fn) -> tuple:
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -318,8 +360,9 @@ def launches() -> dict:
 
 
 def ptxas_by_kernel(log: str) -> dict:
-    """ptxas's registers and spills per kernel from an ``-Xptxas -v`` build
-    log, keyed by the kernel's name (with its degree for K6a's template)."""
+    """ptxas's registers, stack frame and spills per kernel from an
+    ``-Xptxas -v`` build log, keyed by the kernel's name (with its degree for
+    K6a's template)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -330,8 +373,10 @@ def ptxas_by_kernel(log: str) -> dict:
                 cur += f"<{k.group(2)}>"
             out[cur] = {}
         elif cur and "spill stores" in line:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", line)
+            out[cur].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
         elif cur and "registers" in line:
             out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
     return out
@@ -568,6 +613,85 @@ def k6a_row(what: str, base, ext, bidx, eidx, scalars, deg: int, ptxas: dict) ->
     return row
 
 
+def duplex_perms(n_in: int, pos: int, sq_pos: int, absorbed: bool) -> int:
+    """Permutations of one K5/K7 step that absorbs ``n_in`` words from
+    (pos, sq_pos, absorbed) and samples one ext challenge."""
+    perms = 0
+    for _ in range(n_in):
+        perms += pos == 8
+        pos = 1 if pos == 8 else pos + 1
+        absorbed = True
+    for _ in range(4):
+        if absorbed or sq_pos == 8:
+            perms, sq_pos, absorbed = perms + 1, 0, False
+        sq_pos += 1
+    return perms
+
+
+def duplex_check_cases() -> list:
+    """(pos, sq_pos, absorbed, words, powers) of the K5/K7 checks: every pos
+    (0-8), sq_pos 0, 4 or 8, absorbed or not, each with a round's 16 words
+    and 5 powers and with one of DUPLEX_CHECKS in turn; then each of
+    DUPLEX_STEPS from DUPLEX_FROM, the shapes that are timed."""
+    states = [(pos, sq_pos, absorbed) for pos in range(9) for sq_pos in (0, 4, 8)
+              for absorbed in (False, True)]
+    return [(*st, *case) for k, st in enumerate(states)
+            for case in ((16, 5), DUPLEX_CHECKS[k % len(DUPLEX_CHECKS)])] + \
+        [(*DUPLEX_FROM, n_in, n_pows) for _, n_in, n_pows in DUPLEX_STEPS]
+
+
+def duplex_vs_plain(rng, ptxas) -> list:
+    """K5/K7 against its plain version, bitwise, from every pos (0-8), sq_pos
+    0, 4 or 8, absorbed or not: each absorbing a round's 16 words and
+    sampling with 5 powers, and absorbing and sampling one of DUPLEX_CHECKS
+    (up to 96 words, several permutations in one launch; up to 70 powers,
+    past the warp's 32 lanes); and at each of DUPLEX_STEPS from DUPLEX_FROM.
+    Then at each of DUPLEX_STEPS, timed without the host's pacing
+    (:func:`graph_ms`), with the plain version's time and the bound. Returns
+    one row per step."""
+    def fresh(n, k):
+        return [bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE),
+                torch.zeros(4, dtype=bb.DTYPE, device=DEVICE),
+                torch.zeros((4, k + 1), dtype=bb.DTYPE, device=DEVICE)], \
+            bb.to_device(rng.integers(0, bb.P, size=n, dtype=np.uint64), DEVICE)
+    errs = {}
+    for pos, sq_pos, absorbed, n_in, n_pows in duplex_check_cases():
+        got, words = fresh(n_in, n_pows)
+        want = [t.clone() for t in got]
+        absorb = words if n_in else None
+        fused.duplex(got[0], absorb, got[1], got[2][:, :n_pows] if n_pows else None,
+                     pos=pos, sq_pos=sq_pos, absorbed=absorbed)
+        fused.duplex_plain(want[0], absorb, want[1], want[2][:, :n_pows] if n_pows else None,
+                           pos, sq_pos, absorbed)
+        err = errs[pos, sq_pos, absorbed, n_in, n_pows] = max(
+            max_abs_err(a, b) for a, b in zip(got, want))
+        if err:
+            fail(f"K5/K7 differs from its plain version from pos {pos}, sq_pos {sq_pos}, "
+                 f"absorbed {absorbed}, {n_in} words, {n_pows} powers")
+    log(f"K5/K7 from every pos (0-8), sq_pos 0/4/8, absorbed or not, with 16 words and 5 "
+        f"powers and with {DUPLEX_CHECKS} (words, powers) in turn, and at each of DUPLEX_STEPS, "
+        f"equals its plain version")
+    rows = []
+    pos, sq_pos, absorbed = DUPLEX_FROM
+    for what, n_in, n_pows in DUPLEX_STEPS:
+        (st, out, pows), words = fresh(n_in, n_pows)
+        absorb, pw = (words if n_in else None), (pows[:, :n_pows] if n_pows else None)
+        ms = graph_ms(lambda: fused.duplex(st, absorb, out, pw, pos=pos, sq_pos=sq_pos,
+                                           absorbed=absorbed))
+        _, plain_ms = wall_ms(lambda: fused.duplex_plain(st, absorb, out, pw, pos, sq_pos,
+                                                         absorbed))
+        perms = duplex_perms(n_in, pos, sq_pos, absorbed)
+        # the state in and out, the words, the challenge and the powers
+        b_ms, b_by = bound(perms, 4 * (2 * 16 + n_in + 4 + 4 * n_pows))
+        rows.append(dict(name="duplex", shape=f"{what}: absorb {n_in} words from pos {pos}, "
+                         f"sample one ext ({perms} permutations), {n_pows} powers",
+                         max_abs_err=errs[pos, sq_pos, absorbed, n_in, n_pows], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ptxas=ptxas))
+        log(f"K5/K7 {rows[-1]['shape']}: kernel {ms:.4f} ms (CUDA graph of 200 launches), "
+            f"plain {plain_ms:.2f} ms, bound {b_ms:.7f} ms ({b_by}; latency binds), {ptxas}")
+    return rows
+
+
 def sumcheck_kernels_vs_plain(rng, ptxas: dict) -> tuple:
     """K6a, K6b (mixed and ext mode) and K5/K7 against their plain versions,
     bitwise, at the main path's largest shapes, with the times of both and
@@ -599,37 +723,8 @@ def sumcheck_kernels_vs_plain(rng, ptxas: dict) -> tuple:
                 fail(f"K6b ({mode} mode) differs from its plain version on the {what}")
             del got, want
         del base, ext
-    # K5/K7: one step from every pos, absorbed or not, at each sq_pos a round
-    # can meet; a round's step (absorb a deg-3 message, 16 words, sample)
-    for pos in range(9):
-        for sq_pos in (0, 4, 8):
-            for absorbed in (False, True):
-                st = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
-                words = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
-                outs = [[st.clone(), torch.zeros(4, dtype=bb.DTYPE, device=DEVICE),
-                         torch.zeros((4, 6), dtype=bb.DTYPE, device=DEVICE)] for _ in range(2)]
-                fused.duplex(outs[0][0], words, outs[0][1], outs[0][2][:, :5], pos=pos,
-                             sq_pos=sq_pos, absorbed=absorbed)
-                fused.duplex_plain(outs[1][0], words, outs[1][1], outs[1][2][:, :5], pos, sq_pos,
-                                   absorbed)
-                err = max(max_abs_err(a, b) for a, b in zip(*outs))
-                if err:
-                    fail(f"K5/K7 differs from its plain version from pos {pos}, sq_pos {sq_pos}, "
-                         f"absorbed {absorbed}")
-    st = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
-    words = bb.to_device(rng.integers(0, bb.P, size=16, dtype=np.uint64), DEVICE)
-    out = torch.zeros(4, dtype=bb.DTYPE, device=DEVICE)
-    ms = cuda_ms(lambda: fused.duplex(st, words, out, pos=0, sq_pos=4, absorbed=False), reps=20)
-    _, plain_ms = wall_ms(lambda: fused.duplex_plain(st, words, out, None, 0, 4, False))
-    perms = 2  # 16 words from pos 0: one permutation when pos reaches 8, one before the sample
-    b_ms, b_by = bound(perms, 4 * (2 * 16 + 16 + 4))  # state in and out, the words, the challenge
-    rows.append(dict(name="duplex", shape="a round's step: absorb 16 words from pos 0, sample "
-                     f"one ext ({perms} permutations)", max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, ptxas=regs("duplex_kernel")))
-    results["duplex"] = rows[-1]
-    log(f"K5/K7 from every pos (0-8), sq_pos 0/4/8, absorbed or not, equals its plain version; "
-        f"{rows[-1]['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms "
-        f"({b_by}), {rows[-1]['ptxas']}")
+    rows += duplex_vs_plain(rng, regs("duplex_kernel"))
+    results["duplex"] = rows[-len(DUPLEX_STEPS)]
     lines = {"round_evals": "ceno_tpu/sumcheck/terms.py:108",
              "fold": "ceno_tpu/sumcheck/terms.py:138", "duplex": "ceno_tpu/sumcheck/fused.py:30"}
     kernels = [dict(name=name, route="cuda", source="ceno_tpu_torch/csrc/sumcheck.cu",
@@ -971,6 +1066,35 @@ def sumcheck_calls(keep: dict | None = None):
         terms.round_evals = original
 
 
+@contextlib.contextmanager
+def duplex_calls():
+    """Count the K5/K7 steps made inside the block by their (words absorbed,
+    powers): a dict the block fills."""
+    counts, original = {}, fused.duplex
+
+    def inner(state, absorb, out, pows=None, **kwargs):
+        key = (0 if absorb is None else absorb.shape[0], 0 if pows is None else pows.shape[1])
+        counts[key] = counts.get(key, 0) + 1
+        return original(state, absorb, out, pows, **kwargs)
+    fused.duplex = inner
+    try:
+        yield counts
+    finally:
+        fused.duplex = original
+
+
+def check_duplex_steps(counts: dict) -> None:
+    """Each of phase 2's K5/K7 steps (DUPLEX_STEPS) is among the steps the
+    prove made (:func:`duplex_calls`)."""
+    for what, n_in, n_pows in DUPLEX_STEPS:
+        if not counts.get((n_in, n_pows)):
+            fail(f"phase 2's K5/K7 step {what} ({n_in} words, {n_pows} powers) is not among "
+                 f"the prove's: {sorted(counts)}")
+    log(f"phase 2's {len(DUPLEX_STEPS)} K5/K7 steps are among the prove's "
+        f"{sum(counts.values())} steps ({len(counts)} kinds; the most words {max(counts)[0]}, "
+        f"the most powers {max(k[1] for k in counts)})")
+
+
 def first_rounds(calls) -> list:
     """The distinct first-round shapes of :func:`sumcheck_calls`, with the
     count of live terms (nonzero scalars), as JSON."""
@@ -1208,9 +1332,11 @@ def stage_seconds(tree: dict) -> dict:
 
 def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
     """The main path at fibonacci_vm(n): the native emulator (no fallback),
-    the public values, keygen (then ``key_check(pk)``), a first prove, a
-    second prove with spans and the device audit on, then verify; both
-    proofs must be the same bytes, and each tampered proof must be rejected.
+    the public values, keygen (then ``key_check(pk)``), a first prove (its
+    K5/K7 steps counted: the line's ``duplex_steps``, [words, powers,
+    count]), a second prove with spans and the device audit on, then
+    verify; both proofs must be the same bytes, and each tampered proof
+    must be rejected.
     The launch counts are reset just before keygen and before the second
     prove, and read just after each. Returns (the ``e2e`` line, the timed
     prove's span report, {"keygen" | "prove": (launches, planned trees)},
@@ -1236,8 +1362,9 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
     if key_check:
         key_check(pk)
     t0 = time.time()
-    first = scheme.prove(pk, vm, trace, pv, device=DEVICE)
-    sync()
+    with duplex_calls() as steps:
+        first = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+        sync()
     seconds["prove_first"] = time.time() - t0
     if torch.device(DEVICE).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1287,7 +1414,8 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
             "reference_proof_kib": REFERENCE_PROOF_KIB, "max_memory_allocated": peak,
             "launches": {path: c[0] for path, c in counted.items()}, "chips": len(pk.metas),
             "active_chips": {m.name: {"rows": k, "height": h} for m, k, h in active},
-            "tower_groups": groups, "classes": classes, "checked_on_device": checked}
+            "tower_groups": groups, "classes": classes, "checked_on_device": checked,
+            "duplex_steps": [[n_in, n_pows, c] for (n_in, n_pows), c in sorted(steps.items())]}
     if sorted(groups) != sorted(f"2^{n_t.bit_length() - 1}" for n_t in proof.tower_groups):
         fail(f"e2e: tower groups {sorted(groups)} against the proof's {sorted(proof.tower_groups)}")
     return line, span_report, counted, (pk, vm, trace)
@@ -1911,6 +2039,7 @@ def main() -> int:
     with phase("5 e2e"):
         e2e_line, e2e_report, e2e_counted, (pk, vm, trace) = run_e2e(
             E2E_ITERS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams(), key_check=fixed_commit_check)
+        check_duplex_steps({(a, b): c for a, b, c in e2e_line["duplex_steps"]})
         t = time.time()
         e2e_line["golden"] = e2e_golden_check()
         e2e_line["seconds"]["golden_check"] = time.time() - t

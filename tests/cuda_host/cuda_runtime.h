@@ -3,14 +3,19 @@
 // CPU (tests/test_torch_sumcheck_kernels.py). A launch runs its blocks one
 // after the other, each block's threads as std::threads, __syncthreads as a
 // std::barrier and __shared__ arrays as statics (one block at a time shares
-// them). Enough for csrc/sumcheck.cu, which has no warp shuffles; kernel
-// launches (kernel<<<grid, block, smem, stream>>>(args)) are rewritten by
-// the test into run_kernel(Launch(grid, block, smem, stream), kernel, args).
+// them). The warp functions (__shfl_sync, __shfl_xor_sync, __syncwarp) hold
+// for a block of one warp, as csrc/sumcheck.cu's duplex launches: each lane
+// puts its value into a static slot, the block's barrier, each lane reads
+// its source's slot, the barrier again. So every lane must reach every
+// shuffle, as on the card. Kernel launches (kernel<<<grid, block, smem,
+// stream>>>(args)) are rewritten by the test into
+// run_kernel(Launch(grid, block, smem, stream), kernel, args).
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <thread>
 #include <vector>
 
@@ -38,6 +43,35 @@ inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 inline uint32_t min(uint32_t a, uint32_t b) { return std::min(a, b); }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 template <class T> inline T __ldg(const T* p) { return *p; }
+
+// A block of one warp: lane = threadIdx.x < 32.
+inline uint32_t g_warp_slots[32];
+
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
+
+inline uint32_t warp_exchange(uint32_t v, unsigned src) {
+  if (blockDim.x > 32) std::abort();  // the stand-in's shuffles take one warp
+  g_warp_slots[threadIdx.x] = v;
+  __syncthreads();
+  uint32_t r = g_warp_slots[src];
+  __syncthreads();
+  return r;
+}
+
+// CUDA: the source lane is srcLane mod width within the caller's segment
+// of width lanes.
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width = 32) {
+  const unsigned seg = threadIdx.x & ~static_cast<unsigned>(width - 1);
+  return warp_exchange(v, seg + (static_cast<unsigned>(src) & (width - 1)));
+}
+
+// CUDA: lane ^ laneMask; a source past the caller's segment gives the
+// caller's own value.
+inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int lane_mask, int width = 32) {
+  const unsigned seg = threadIdx.x & ~static_cast<unsigned>(width - 1);
+  const unsigned src = threadIdx.x ^ static_cast<unsigned>(lane_mask);
+  return warp_exchange(v, src >= seg + width ? threadIdx.x : src);
+}
 
 struct Launch {
   dim3 grid, block;

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from ceno_tpu_torch.fields import babybear as bb
+from ceno_tpu_torch.fields import ext4
 from ceno_tpu_torch.hash import poseidon2 as p2
 from ceno_tpu_torch.hash.transcript import Transcript
 from ceno_tpu_torch.sumcheck import fused, terms as T
@@ -300,6 +301,106 @@ def test_duplex_matches_plain_and_transcript(lib, pos, absorbed):
             np.testing.assert_array_equal(bb.to_host(got[0]), host.state)
 
 
+# (words absorbed, powers) of the one-warp duplex's cases: several
+# permutations in one launch (up to 70 words), powers past the warp's 32
+# lanes (0, 1, 31, 32, 33 and 70)
+DUPLEX_CASES = [(70, 70), (0, 33), (33, 32), (16, 0), (20, 31), (64, 1), (70, 33), (1, 70),
+                (7, 32)]
+
+
+def _duplex_step(lib, seed, pos, sq_pos, absorbed, n_in, n_pows):
+    """One step through ``lib`` against duplex_plain and the host
+    transcript: the state, the challenge and its powers."""
+    rng = np.random.default_rng(seed)
+    st, words = _words(rng, (16,)), _words(rng, (n_in,))
+    absorb = words if n_in else None
+    got = [st.clone(), torch.zeros(4, dtype=bb.DTYPE), torch.zeros((4, n_pows), dtype=bb.DTYPE)]
+    want = [t.clone() for t in got]
+    pw = (lambda t: t if n_pows else None)
+    fused.launch_duplex(lib, None, got[0], absorb, got[1], pw(got[2]), pos, sq_pos, absorbed)
+    fused.duplex_plain(want[0], absorb, want[1], pw(want[2]), pos, sq_pos, absorbed)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (pos, sq_pos, absorbed, n_in, n_pows)
+    host = Transcript.from_state((bb.to_host(st), pos, sq_pos, absorbed))
+    host.append(bb.to_host(words))
+    alpha = host.sample_ext()
+    np.testing.assert_array_equal(bb.to_host(got[1]), alpha)
+    np.testing.assert_array_equal(bb.to_host(got[0]), host.state)
+    cur = (1, 0, 0, 0)
+    for i in range(n_pows):
+        np.testing.assert_array_equal(bb.to_host(got[2][:, i]), cur)
+        cur = ext4.py_mul(cur, alpha)
+
+
+@pytest.mark.parametrize("absorbed", [False, True])
+@pytest.mark.parametrize("pos", range(p2.RATE + 1))
+def test_duplex_long_absorbs_and_powers(lib, pos, absorbed):
+    """From every pos and sq_pos, absorbed or not, each of DUPLEX_CASES in
+    turn: absorbs of up to 70 words (up to 9 permutations in one launch)
+    and up to 70 powers, against the plain version and the host transcript."""
+    for sq_pos in range(p2.RATE + 1):
+        n_in, n_pows = DUPLEX_CASES[(pos + sq_pos) % len(DUPLEX_CASES)]
+        _duplex_step(lib, [pos, sq_pos, int(absorbed), 1], pos, sq_pos, absorbed, n_in, n_pows)
+
+
+@pytest.mark.parametrize("step", range(4))
+def test_duplex_timed_step_shapes(lib, step):
+    """Each step shape that chip_smoke times K5/K7 at (DUPLEX_STEPS), from
+    where the prove makes it (DUPLEX_FROM), as chip_smoke's own check list
+    holds them."""
+    import chip_smoke as cs
+
+    what, n_in, n_pows = cs.DUPLEX_STEPS[step]
+    assert (*cs.DUPLEX_FROM, n_in, n_pows) in cs.duplex_check_cases(), what
+    _duplex_step(lib, [step, 3], *cs.DUPLEX_FROM, n_in, n_pows)
+
+
+@pytest.mark.parametrize("extra", [0, 1, 1076])
+def test_duplex_absorb_past_one_tile(lib, extra):
+    """An absorb of the kernel's whole shared tile of words, and past it:
+    the words go in a tile at a time."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "sumcheck.cu")) as f:
+        tile = int(re.search(r"DUPLEX_TILE = (\d+);", f.read()).group(1))
+    _duplex_step(lib, [tile, extra], 5, 2, False, tile + extra, 3)
+
+
+def test_kernel_library_is_declared_once(monkeypatch):
+    """The wrappers' library handle declares its C signatures when it is
+    first loaded, not on every launch."""
+    declared, handle = [], object()
+    monkeypatch.setattr(cuda_build, "load", lambda name: handle)
+    monkeypatch.setattr(T, "declare", lambda lib: declared.append(lib) or lib)
+    T._lib.cache_clear()
+    try:
+        assert all(T._lib() is handle for _ in range(5)) and declared == [handle]
+    finally:
+        T._lib.cache_clear()
+
+
+def test_chip_smoke_duplex_steps(monkeypatch):
+    """chip_smoke's K5/K7 step shapes: their permutations from where the
+    prove makes them (against the host transcript's), and the check that
+    the prove made each."""
+    import chip_smoke as cs
+
+    perms = [cs.duplex_perms(n_in, *cs.DUPLEX_FROM) for _, n_in, _ in cs.DUPLEX_STEPS]
+    assert perms == [2, 3, 0, 12]
+    calls, real = [], p2.permute_host
+    monkeypatch.setattr(p2, "permute_host", lambda st: calls.append(1) or real(st))
+    for pos in range(p2.RATE + 1):
+        for n_in in (0, 5, 16, 70):
+            for sq_pos in (0, 4, 8):
+                calls.clear()
+                host = Transcript.from_state((np.zeros(16, np.uint64), pos, sq_pos, True))
+                host.append(np.zeros(n_in, np.uint64))
+                host.sample_ext()
+                assert cs.duplex_perms(n_in, pos, sq_pos, True) == len(calls), (pos, n_in)
+    made = {(n_in, n_pows): 1 for _, n_in, n_pows in cs.DUPLEX_STEPS}
+    cs.check_duplex_steps({**made, (5, 0): 3})
+    with pytest.raises(SystemExit, match="K5/K7 step"):
+        cs.check_duplex_steps({k: v for k, v in made.items() if k != (0, 12)})
+
+
 def test_duplex_absorb_only_and_sample_only(lib):
     rng = np.random.default_rng(8)
     st, words = _words(rng, (16,)), _words(rng, (11,))
@@ -405,6 +506,7 @@ def test_chip_smoke_k6a_rows_on_the_cpu(monkeypatch):
         t = time.perf_counter()
         return fn(), (time.perf_counter() - t) * 1e3
     monkeypatch.setattr(cs, "wall_ms", wall_ms)
+    monkeypatch.setattr(cs, "graph_ms", lambda fn, n=200: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "TOWER_LOG_N", 4)
     monkeypatch.setattr(cs, "QUARK_LOG_N", 3)
     for name in ("CLASS_MAINS", "PRECOMPILE_CLASS_MAINS"):
@@ -434,7 +536,8 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111fold_kernelEPKjS1_S
 ptxas info    : Used 30 registers"""
     assert cs.ptxas_by_kernel(log) == {
         "round_evals_kernel<8>": {"registers": 96},
-        "round_evals_reduce_kernel<3>": {"spill_stores": 8, "spill_loads": 8, "registers": 40},
+        "round_evals_reduce_kernel<3>": {"stack_frame": 0, "spill_stores": 8, "spill_loads": 8,
+                                         "registers": 40},
         "fold_kernel": {"registers": 30}}
 
 

@@ -68,8 +68,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def build(variants: dict, out_dir: str) -> dict:
-    """Start one nvcc per variant, all at once; name -> (library or None, ptxas by kernel)."""
+def build(variants: dict, out_dir: str, show=("round_evals",)) -> dict:
+    """Start one nvcc per variant, all at once; name -> (library or None, ptxas
+    by kernel). Prints ptxas's line of each kernel whose name has a part in
+    ``show``."""
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, (src, defines) in variants.items():
@@ -84,7 +86,7 @@ def build(variants: dict, out_dir: str) -> dict:
         log(f"[{name}] nvcc rc {proc.returncode} in {time.time() - t0:.1f}s")
         ptxas = cs.ptxas_by_kernel(out)
         for kernel, info in ptxas.items():
-            if "round_evals" in kernel:
+            if any(part in kernel for part in show):
                 log(f"[{name}]   {kernel}: {info}")
         if proc.returncode:
             log(out[-4000:])
