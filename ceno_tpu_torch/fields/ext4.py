@@ -55,16 +55,25 @@ def neg(a):
     return bb.neg(a)
 
 
+def mul_parts(a, b) -> list:
+    """Ext4 product of two lists of 4 int64 coefficient tensors (Montgomery
+    form, each in [0, p)), broadcasting; returns the 4 int64 coefficients.
+
+    A product of two elements is below p^2 < 2^62, so each sum of two
+    products, or of one and a reduced term, stays below 2^63."""
+    a0, a1, a2, a3 = a
+    b0, b1, b2, b3 = b
+    c0 = (a0 * b0 + W * (((a1 * b3 + a2 * b2) % _P + a3 * b1) % _P)) % _P
+    c1 = ((a0 * b1 + a1 * b0) % _P + W * ((a2 * b3 + a3 * b2) % _P)) % _P
+    c2 = ((a0 * b2 + a1 * b1) % _P + a2 * b0 + W * (a3 * b3 % _P)) % _P
+    c3 = ((a0 * b3 + a1 * b2) % _P + a2 * b1 + a3 * b0) % _P
+    return [c * bb.RINV % _P for c in (c0, c1, c2, c3)]
+
+
 def mul(a, b):
     """Ext4 x Ext4 product, broadcasting over the batch axes."""
-    a = [a[i].long() for i in range(4)]
-    b = [b[i].long() for i in range(4)]
-    m = lambda i, j: a[i] * b[j] % _P  # noqa: E731
-    c0 = m(0, 0) + W * ((m(1, 3) + m(2, 2) + m(3, 1)) % _P)
-    c1 = m(0, 1) + m(1, 0) + W * ((m(2, 3) + m(3, 2)) % _P)
-    c2 = m(0, 2) + m(1, 1) + m(2, 0) + W * m(3, 3)
-    c3 = m(0, 3) + m(1, 2) + m(2, 1) + m(3, 0)
-    return torch.stack([c % _P * bb.RINV % _P for c in (c0, c1, c2, c3)]).to(bb.DTYPE)
+    c = mul_parts([a[i].long() for i in range(4)], [b[i].long() for i in range(4)])
+    return torch.stack(c).to(bb.DTYPE)
 
 
 def mul_base(a, b):

@@ -107,9 +107,46 @@ def _h_internal_linear(state):
     return (state * diag % _P64 + s) % _P64
 
 
+def _permute_one(v: list) -> list:
+    """The permutation of one state as 16 Python ints (canonical): the host
+    transcript's and the witness builders' single states, without numpy's
+    per-call cost on 16 words."""
+    p = bb.P
+
+    def external(v):
+        t0 = v[0] + v[4] + v[8] + v[12]
+        t1 = v[1] + v[5] + v[9] + v[13]
+        t2 = v[2] + v[6] + v[10] + v[14]
+        t3 = v[3] + v[7] + v[11] + v[15]
+        out = []
+        for i in (0, 4, 8, 12):
+            x0, x1, x2, x3 = v[i] + t0, v[i + 1] + t1, v[i + 2] + t2, v[i + 3] + t3
+            s = x0 + x1 + x2 + x3
+            out += [(s + x0 + 2 * x1) % p, (s + x1 + 2 * x2) % p,
+                    (s + x2 + 2 * x3) % p, (s + x3 + 2 * x0) % p]
+        return out
+
+    v = external(v)
+    for rc in _RC_EXTERNAL_FIRST:
+        v = external([pow(x + c, 7, p) for x, c in zip(v, rc)])
+    for c in RC_INTERNAL:
+        v[0] = pow(v[0] + c, 7, p)
+        s = sum(v)
+        v = [(x * d + s) % p for x, d in zip(v, INTERNAL_DIAG)]
+    for rc in _RC_EXTERNAL_LAST:
+        v = external([pow(x + c, 7, p) for x, c in zip(v, rc)])
+    return v
+
+
+_RC_EXTERNAL_FIRST = RC_EXTERNAL[: ROUNDS_F // 2]
+_RC_EXTERNAL_LAST = RC_EXTERNAL[ROUNDS_F // 2 :]
+
+
 def permute_host(state: np.ndarray) -> np.ndarray:
     """Poseidon2 permutation; ``state`` is canonical uint64 (16,) or (16, N)."""
     st = np.asarray(state, np.uint64) % _P64
+    if st.ndim == 1:
+        return np.array(_permute_one([int(x) for x in st]), np.uint64)
     st = _h_external_linear(st)
     half = ROUNDS_F // 2
     for r in range(half):

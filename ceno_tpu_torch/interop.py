@@ -26,10 +26,20 @@ continuations' plan goes as plain data: a shard's token lists
 object. The key does not go across: keygen is deterministic, so each side
 derives it from (program, config, params), and :func:`key_summary` gives what
 two keys are compared by.
+
+An aggregation proof goes across as plain data (:func:`agg_proof_to_dict`,
+:func:`agg_proof_from_dict`, a ShardGeometry likewise) or as its
+``agg_proof_to_bytes`` bytes, the same format in both packages. Its key is
+compared, not carried, as the shard key is: each side rebuilds it with
+``expected_agg_key`` from the vk and the proof's geometry, and
+:func:`agg_key_summary` gives what two keys are compared by (its chips'
+names, compiled digests and fixed columns, the params and ``digest_elems``);
+:func:`agg_key_check` holds a port key against such a summary.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 
 import numpy as np
@@ -43,6 +53,7 @@ from .pcs.basefold import BasefoldParams, Committed, OpeningProof, QueryProof
 from .pcs.jagged import JaggedClaim, JaggedLayout, JaggedOpening, SliceRef
 from .pcs.merkle import MerkleTree
 from .zkvm import serialize
+from .zkvm.aggregate import AggKey, AggProof, ShardGeometry
 from .zkvm.chips.opcodes import TraceView
 from .zkvm.chips.shard_ram import Tokens
 from .zkvm.shard import ShardContext, ShardedProof
@@ -213,3 +224,80 @@ def key_summary(vk) -> dict:
     chip in registry order, its name and ``chip_digest``."""
     return {"digest_elems": np.asarray(vk.digest_elems(), np.uint64),
             "chips": [(m.name, chip_digest(m.compiled)) for m in vk.metas]}
+
+
+# -- aggregation: AggProof and ShardGeometry carried, AggKey compared ----------
+
+def shard_geometry_to_dict(g) -> dict:
+    return {"num_instances": [int(k) for k in g.num_instances], "is_first": bool(g.is_first),
+            "is_last": bool(g.is_last), "standalone": bool(g.standalone)}
+
+
+def shard_geometry_from_dict(d: dict) -> ShardGeometry:
+    return ShardGeometry([int(k) for k in d["num_instances"]], bool(d["is_first"]),
+                         bool(d["is_last"]), bool(d["standalone"]))
+
+
+def _geometry_to_plain(geo):
+    if geo is None:
+        return None
+    if isinstance(geo, (tuple, list)) and len(geo) == 2 and geo[0] == "chipset":
+        return ["chipset", [[int(k) for k in ninst] for ninst in geo[1]]]
+    return [shard_geometry_to_dict(g) for g in geo]
+
+
+def _geometry_from_plain(geo):
+    if geo is None:
+        return None
+    if len(geo) == 2 and geo[0] == "chipset":
+        return ("chipset", [[int(k) for k in ninst] for ninst in geo[1]])
+    return [shard_geometry_from_dict(g) for g in geo]
+
+
+def agg_proof_to_dict(aproof) -> dict:
+    """An aggregation proof as plain data (either package's; attributes
+    only). Its tower groups and class mains keep their keys, and a level-2
+    proof's geometry goes as ``["chipset", [num_instances, ...]]``."""
+    return {
+        "public_values": _u64(aproof.public_values),
+        "num_instances": [int(k) for k in aproof.num_instances],
+        "witness_root": _u64(aproof.witness_root),
+        "tower_groups": {int(n): dataclasses.asdict(p) for n, p in aproof.tower_groups.items()},
+        "class_main": {int(h): dataclasses.asdict(p) for h, p in aproof.class_main.items()},
+        "witness_opening": dataclasses.asdict(aproof.witness_opening),
+        "geometry": _geometry_to_plain(aproof.geometry),
+    }
+
+
+def agg_proof_from_dict(d: dict) -> AggProof:
+    return AggProof(
+        _u64(d["public_values"]), [int(k) for k in d["num_instances"]], _u64(d["witness_root"]),
+        {int(n): tower_proof_from_dict(p) for n, p in d["tower_groups"].items()},
+        {int(h): class_main_from_dict(p) for h, p in d["class_main"].items()},
+        opening_from_dict(d["witness_opening"]), _geometry_from_plain(d["geometry"]),
+    )
+
+
+def agg_key_summary(key) -> dict:
+    """What two aggregation keys (either package's) are compared by: per
+    chip in set order its name, ``chip_digest`` and fixed columns (None
+    where it has none), the params, and ``digest_elems()``."""
+    return {"names": [name for name, _, _, _ in key.chips],
+            "chip_digests": [chip_digest(compiled) for _, compiled, _, _ in key.chips],
+            "fixed": [None if f is None else _u64(f) for _, _, _, f in key.chips],
+            "params": dataclasses.asdict(key.params),
+            "digest_elems": _u64(key.digest_elems())}
+
+
+def agg_key_check(key: AggKey, summary: dict) -> None:
+    """Raise ValueError unless the port's ``key`` has ``summary``'s chips,
+    fixed columns, params and ``digest_elems`` (:func:`agg_key_summary`)."""
+    mine = agg_key_summary(key)
+    for what in ("names", "chip_digests", "params"):
+        if mine[what] != summary[what]:
+            raise ValueError(f"aggregation key: {what} differ")
+    for name, a, b in zip(mine["names"], mine["fixed"], summary["fixed"]):
+        if (a is None) != (b is None) or (a is not None and not np.array_equal(a, _u64(b))):
+            raise ValueError(f"aggregation key: fixed columns of {name} differ")
+    if not np.array_equal(mine["digest_elems"], _u64(summary["digest_elems"])):
+        raise ValueError("aggregation key: digest_elems differ")

@@ -143,20 +143,22 @@ def round_evals_plain(base_bank, ext_bank, bidx, eidx, scalars, *, deg: int):
     de = eidx.shape[1]
     acc = torch.zeros((4, deg + 1), dtype=torch.int64, device=base_bank.device)
     chunk = max(1, _CHUNK_ELEMS // (4 * (deg + 1) * max(half, 1)))
+    # the products stay int64 (Montgomery, reduced) along each term's factors
     for s0 in range(0, t_total, chunk):
         bi, ei = bidx[s0 : s0 + chunk], eidx[s0 : s0 + chunk]
         pb = None
         for k in range(db):
-            col = bn[:, bi[:, k]]                     # (deg+1, t, half)
-            pb = col if pb is None else bb.mul(pb, col)
+            col = bn[:, bi[:, k]].long()              # (deg+1, t, half)
+            pb = col if pb is None else pb * col % bb.P * bb.RINV % bb.P
         if de:
             pe = None
             for k in range(de):
-                col = en[:, :, ei[:, k]]              # (4, deg+1, t, half)
-                pe = col if pe is None else ext4.mul(pe, col)
+                col = [c.long() for c in en[:, :, ei[:, k]]]  # 4 x (deg+1, t, half)
+                pe = col if pe is None else ext4.mul_parts(pe, col)
             if pb is not None:
-                pe = ext4.mul_base(pe, pb)
-            s = bb.sum_mod(pe, -1)                    # (4, deg+1, t)
+                pb = pb * bb.RINV % bb.P
+                pe = [c * pb % bb.P for c in pe]
+            s = torch.stack([c.sum(dim=-1) % bb.P for c in pe]).to(bb.DTYPE)  # (4, deg+1, t)
         else:
             s = ext4.from_base(bb.sum_mod(pb, -1))
         sc = scalars[:, None, s0 : s0 + chunk]        # (4, 1, t)

@@ -31,9 +31,9 @@ and witness commits, records, towers, class mains, openings) on ``device``,
 the card unless the caller names another; the witness, the transcript and
 the verifier stay on the host in numpy, as in the reference. The port's
 keygen commits the fixed stack directly (no ``commit_cached``). The EC-sum
-quark proofs run their zerochecks on ``device`` too. The verifier has no
-aggregation hooks (``capture``, a recording transcript) and no replay mode:
-it always checks."""
+quark proofs run their zerochecks on ``device`` too. The verifier carries
+the reference's aggregation hooks (``capture``, a recording ``transcript``)
+and waives its value checks inside ``utils/replay.structure_replay()``."""
 
 from __future__ import annotations
 
@@ -575,7 +575,8 @@ def derive_shard_layout(vk: VerifyingKey, num_instances, pv,
 
 def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
            is_last: bool = True, standalone: bool = True,
-           expect_halt: bool = True) -> bool:
+           expect_halt: bool = True,
+           capture: dict | None = None, transcript=None) -> bool:
     """Verify one shard proof. ``standalone`` (the single-shard public API)
     additionally requires shard_id == 0 and an empty cross-shard bus.
 
@@ -584,7 +585,20 @@ def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
     binds PV_END_PC/PV_END_CYCLE/exit code to a real ECALL-HALT, so without
     this check a prover could present a trace that simply ran out without
     halting while claiming arbitrary end-state public values. The verifier
-    is host numpy, so it takes no device."""
+    is host numpy, so it takes no device.
+
+    ``capture`` (aggregation hook, zkvm/aggregate.py): when a dict is
+    passed, each tower-group / class-main stage records its inputs plus a
+    CLONE of the transcript taken just before the stage runs, so the
+    recursion witgen mirrors (gkr/recursion.py) can replay the identical
+    interaction without re-deriving the verify prefix. The records keep the
+    reference's keys, order and tuple layouts. Verification semantics are
+    unchanged.
+
+    ``transcript`` overrides the fresh ``Transcript(LABEL)`` (it must be a
+    freshly-constructed LABEL transcript or behave identically): the
+    aggregation pipeline passes a recording ``ChainTranscript`` so the whole
+    verify interaction becomes provable by the fs-chain chips."""
     pv = np.asarray(proof.public_values, np.uint64)
     if len(pv) != N_PUBLIC_VALUES:
         raise ZKVMError("bad public value count")
@@ -593,7 +607,7 @@ def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
             raise ZKVMError("standalone proof must be shard 0")
         if pv[PV_RW_SUM_IN:PV_RW_SUM_IN + 28].any():
             raise ZKVMError("standalone proof must have empty rw sums")
-    t = Transcript(LABEL)
+    t = transcript if transcript is not None else Transcript(LABEL)
     t.append(vk.digest_elems())
     t.append(pv)
 
@@ -616,16 +630,27 @@ def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
         jl_w, wslice = _jagged_plan(wit_layout)
         if set(proof.witness_roots) != {jl_w.n_r}:
             raise ZKVMError("jagged proof must carry exactly one witness root")
+        if capture is not None and hasattr(t, "absorb_slots_of_next"):
+            capture["wit_root_slots"] = t.absorb_slots_of_next(8)
         t.append(proof.witness_roots[jl_w.n_r])
     else:
         for h in sorted(wit_layout):
             if h not in proof.witness_roots:
                 raise ZKVMError(f"missing witness root for height {h}")
             t.append(proof.witness_roots[h])
+    if capture is not None and hasattr(t, "absorb_slots_of_next"):
+        capture["ninst_slots"] = [
+            t.absorb_slots_of_next(i + 1)[i] for i in range(len(vk.metas))
+        ]
     for ci in range(len(vk.metas)):
         t.append([proof.num_instances[ci] % bb.P])
 
+    if capture is not None:
+        capture["pre_challenges"] = t.clone()
     challenges = np.array([t.sample_ext(), t.sample_ext()], np.uint64)
+    if capture is not None:
+        capture["challenges"] = challenges
+        capture["pv"] = pv
 
     # grouped tower verification: reconstruct the prover's grouping from
     # public chip geometry (N_t = height << rho), ascending N_t, chips in
@@ -651,9 +676,17 @@ def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
              heights[ci].bit_length() - 1)
             for ci in members
         ]
+        if capture is not None:
+            capture.setdefault("towers", []).append(
+                (n_t, entries, proof.tower_groups[n_t], t.clone())
+            )
         results = chiplib.verify_group_towers(
             entries, proof.tower_groups[n_t], pv, challenges, t
         )
+        if capture is not None:
+            capture.setdefault("tower_vctxs", []).append(
+                [r[0] for r in results]
+            )
         for ci, (vctx, prod_values, logup_fracs) in zip(members, results):
             meta = vk.metas[ci]
             vctxs[ci] = vctx
@@ -677,6 +710,11 @@ def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
     openings = [None] * len(vk.metas)
     for h in sorted(wit_layout):
         members = [ci for ci, _, _ in wit_layout[h]]
+        if capture is not None:
+            capture.setdefault("class_main", []).append(
+                (h, [vctxs[ci] for ci in members], proof.class_main[h],
+                 t.clone())
+            )
         opens = chiplib.verify_class_main(
             [vctxs[ci] for ci in members], proof.class_main[h], pv, challenges, t
         )
@@ -702,20 +740,31 @@ def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
             raise ZKVMError(f"{meta.name}: missing ec proof")
         if ecp.num_instances != k or ecp.n_vars != heights[ci].bit_length() - 2:
             raise ZKVMError(f"{meta.name}: ec proof geometry mismatch")
+        if capture is not None:
+            capture.setdefault("ec", []).append((meta.name, ecp, fsum,
+                                                 base, t.clone()))
         rt, evals = eccquark.verify_ec_sum(ecp, fsum, t)
         extra_rows[ci] = _ec_rows(rt, evals)
 
-    if not np.array_equal(prod_r, prod_w):
-        raise ZKVMError("global read/write product mismatch")
-    if logup_num.any():
-        raise ZKVMError("global logup sum is nonzero")
-    if not logup_den.any():
-        raise ZKVMError("logup denominator vanished")
+    from ..utils import replay
+
+    if not replay.structure_only():
+        if not np.array_equal(prod_r, prod_w):
+            raise ZKVMError("global read/write product mismatch")
+        if logup_num.any():
+            raise ZKVMError("global logup sum is nonzero")
+        if not logup_den.any():
+            raise ZKVMError("logup denominator vanished")
 
     if vk.params.jagged:
         if set(proof.witness_openings) != {jl_w.n_r}:
             raise ZKVMError("jagged proof must carry exactly one witness opening")
         claims = _jagged_claims(wit_layout, wslice, openings, extra_rows)
+        if capture is not None:
+            capture.setdefault("jagged", []).append(
+                (jl_w, claims, proof.witness_openings[jl_w.n_r], t.clone(),
+                 ("absorbed", proof.witness_roots[jl_w.n_r]))
+            )
         jagged.verify_jagged(
             proof.witness_roots[jl_w.n_r], jl_w, claims,
             proof.witness_openings[jl_w.n_r], t, vk.params,
@@ -731,6 +780,11 @@ def verify(vk: VerifyingKey, proof: ZKVMProof, *, is_first: bool = True,
             {h: es for h, es in active_fixed.items() if es},
             fslice, openings, {}, fixed=True,
         )
+        if capture is not None:
+            capture.setdefault("jagged", []).append(
+                (jl_f, fclaims, proof.fixed_openings[jl_f.n_r], t.clone(),
+                 ("fixed", vk.fixed_roots[jl_f.n_r]))
+            )
         jagged.verify_jagged(
             vk.fixed_roots[jl_f.n_r], jl_f, fclaims,
             proof.fixed_openings[jl_f.n_r], t, vk.params,

@@ -16,9 +16,9 @@ verifier pins its own and rejects proofs whose embedded copies differ
 
 Counterpart of ``ceno_tpu/zkvm/serialize.py``: the same format, byte for
 byte. Its whitelist holds the port's own classes of a shard's proof, the
-EC-sum quark's and the sharded proof's; the classes of modules not ported
-yet (aggregation, WHIR) are left out, so a proof naming one is refused with
-ProofFormatError. Every array of a proof object must be numpy, ``uint64``
+EC-sum quark's, the sharded proof's and the aggregation proof's; the
+classes of WHIR, which is not ported, are left out, so a proof naming one is
+refused with ProofFormatError. Every array of a proof object must be numpy, ``uint64``
 exactly where the reference has one: a tensor raises, and another dtype
 encodes to other bytes.
 """
@@ -53,11 +53,13 @@ def _whitelist():
     from .scheme import ZKVMProof
     from ..gkr.eccquark import EccQuarkProof
     from .shard import ShardedProof
+    from .aggregate import AggProof, ShardGeometry
 
     classes = [
         ZKVMProof, ChipProof, ClassMainProof, TowerProof,
         OpeningProof, QueryProof, JaggedOpening,
         BasefoldParams, ZKVMConfig, Platform, EccQuarkProof, ShardedProof,
+        AggProof, ShardGeometry,
     ]
     return {c.__name__: c for c in classes}
 
@@ -275,6 +277,36 @@ def proof_to_bytes(proof, public_values: np.ndarray, cfg, params) -> bytes:
         },
     )
     return buf.getvalue()
+
+
+def agg_proof_to_bytes(aproof, params) -> bytes:
+    """Serialize an aggregation proof (zkvm/aggregate.py::AggProof). The
+    AggKey is NOT serialized — it is key material the verifier derives from
+    the shard vk / proof geometry (like the shard VerifyingKey)."""
+    buf = io.BytesIO()
+    buf.write(MAGIC)
+    _encode(buf, {"agg_proof": aproof, "params": params})
+    return buf.getvalue()
+
+
+def agg_proof_from_bytes(data: bytes):
+    if data[:8] != MAGIC:
+        raise ProofFormatError("not a ceno-tpu proof (bad magic)")
+    r = _Reader(data[8:])
+    try:
+        obj = _decode(r, _whitelist())
+    except ProofFormatError:
+        raise
+    except Exception as e:
+        raise ProofFormatError(f"malformed proof: {type(e).__name__}") from None
+    if r.pos != len(r.data):
+        raise ProofFormatError("trailing bytes after proof")
+    if not isinstance(obj, dict):
+        raise ProofFormatError("top-level object must be a dict")
+    try:
+        return obj["agg_proof"], obj["params"]
+    except KeyError as e:
+        raise ProofFormatError(f"missing top-level key {e}") from None
 
 
 def proof_from_bytes(data: bytes):

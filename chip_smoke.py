@@ -31,7 +31,11 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      K6a and K6b also at the shard-RAM class main and the EC-sum quark
      (phase 6 runs them) and at the precompile class mains
      (``PRECOMPILE_CLASS_MAINS``: the keccak core's 2^15 class, the keccak
-     ecall's 2^10 class, the secp guest's 2-row class; phase 7 runs them);
+     ecall's 2^10 class, the secp guest's 2-row class; phase 7 runs them)
+     and at the aggregation's class mains (``AGG_CLASS_MAINS``: the 2^15
+     class of pcs_merkle_rows, the 2^12 class of fs_duplex, both of degree
+     8, the 2-row class of 6,299 terms; phase 9 runs them), K1 and K2 also
+     at the aggregation's commit (415, 2^18);
      with ptxas's registers, stack frame and spills for each, and for K6a
      the launch plan its wrapper chose (``terms.round_evals_plan``);
   3. the PCS slice end to end with the default BasefoldParams: commit, open
@@ -72,13 +76,14 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and ``BasefoldParams()``
      must have the SHA-256 and length of the reference's
      (``ceno_tpu_torch/golden/e2e_fibonacci.json``) and verify;
-  6. continuations: first the golden gate, ``prove_shards`` (pipelined) of
+  6. continuations: its golden gate (run in phase 9's untimed window),
+     ``prove_shards`` (pipelined) of
      ``fibonacci_vm(12)`` at ``tests/test_shard.py``'s setup (40 steps a
      shard, 3 shards): each shard's proof must have the SHA-256 and length of
      the reference's (``ceno_tpu_torch/golden/shard_fibonacci.json``),
      ``verify_shards`` must accept it and reject a broken pc chain, a broken
      cycle chain, a tampered RW sum and a dropped shard, and ``verify`` an
-     interior shard as a standalone proof. Then the 2^20 fibonacci as two
+     interior shard as a standalone proof. The phase: the 2^20 fibonacci as two
      shards on phase 5's key, vm and trace (``bench_shards.py``'s
      ``max_steps = (n + 1) // 2 + 8``): the AOT preflight's bounds must equal
      the trace's ``plan_boundaries``; ``prove_shards`` pipelined on the card
@@ -89,8 +94,8 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      cross-shard EC sum be the identity, and the same tampered proofs be
      rejected; then K6a against its plain version, bitwise and timed, on the
      first-round inputs of the shard-RAM 2^9 class main that prove made;
-  7. precompiles and guest I/O: first the golden gate, the proofs of four
-     guests at ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and
+  7. precompiles and guest I/O: its golden gate (run in phase 9's untimed
+     window), the proofs of four guests at ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and
      ``BasefoldParams()`` (``examples/precompile_torture.s``: keccak-f, SHA
      extend, uint256 mul, PUB_IO_COMMIT; ``examples/hashing.s`` with its hints
      written by ``CenoStdin``; ``tests/test_curves.py``'s secp guest, run by
@@ -98,33 +103,61 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      ``tests/test_messages.py``'s println guest, its messages read back with
      ``read_all_messages``): each must have the SHA-256 and length of the
      reference's (``ceno_tpu_torch/golden/precompile_guests.json``) and
-     verify. Then the precompile path at full size: KECCAK_LOOP_SRC with
+     verify; the secp guest's prove must run phase 2's secp class main.
+     The phase: the precompile path at full size, KECCAK_LOOP_SRC with
      1,024 permutations (N from a ``CenoStdin`` hints buffer) on the native
      core, its committed words against keccak-f applied 1,024 times on the
      host, keygen at bench.py's config and ``BasefoldParams()``, one prove
      with spans, the device audit and the launch counts (reset just before,
      read just after, each kernel's at least one), verify, and a changed
      main-zerocheck message of the keccak core's class and a changed public
-     value rejected; the secp guest's and the keccak loop's proves must run
-     phase 2's precompile class mains; then K6a against its plain version,
+     value rejected; the keccak loop's prove must run phase 2's keccak
+     class mains; then K6a against its plain version,
      bitwise and timed, on the first-round inputs of the keccak core's 2^15
      class main that prove made;
   8. report: phase 3's span tree; the launch counts of phase 3 and of
      phase 5's keygen and timed prove, each equal to its trees' launch
-     plans (K1 once a tree, K2 as ``merkle_plan`` plans it); a
-     ``{"kernel_shapes": ...}`` line with every shape of phase 2 and the
-     real inputs of phases 6 and 7; phase 4's
+     plans (K1 once a tree, K2 as ``merkle_plan`` plans it); phase 4's
      span tree and its ``{"gkr": {...}}`` line; phase 5's span tree, its
      proof size beside the reference's, and its ``{"e2e": {...}}`` line; a
      ``{"kernels": [...]}`` line (the largest shapes; launches over phase 5's
-     timed prove, each kernel's at least one); phase 6's span tree, its
-     launch counts and its ``{"shards": {...}}`` line (plan, per-shard,
+     timed prove, each kernel's at least one); phase 6's span tree and its
+     launch counts; phase 7's span tree and its launch counts (their
+     ``{"shards": ...}`` and ``{"precompiles": ...}`` lines wait for their
+     golden gates: phase 9 prints them);
+  9. aggregation: the main process aggregates phase 5's 2^20 proof with
+     phase 5's key (``prove_aggregation`` with spans, the device audit and
+     the launch counts, reset just before and read just after, each
+     kernel's at least one; its sumchecks must run ``AGG_CLASS_MAINS``),
+     verifies it key-less (``verify_aggregation``, which rebuilds the key
+     from the proof's skeleton), then holds K6a against its plain version,
+     bitwise and timed, on the first-round inputs of its 2^15 class main;
+     nothing else runs on the host or the card while these are timed.
+     Then, timed by no metric, worker processes (``agg_pool``: spawned,
+     each its own CUDA context) run the golden gates of phases 6 and 7,
+     verify the proof read back from its bytes, reject it with a changed
+     public value, and prove the entries of
+     ``ceno_tpu_torch/golden/aggregation_fibonacci.json`` on the card,
+     holding them against the reference's digests (SHA-256 and length of
+     ``agg_proof_to_bytes``, the key's digest): the single
+     ``prove_aggregation`` of ``fibonacci_vm(8)``, the sharded
+     ``fibonacci_vm(12)`` (``prove_shard_aggregation``), the level-2
+     ``prove_chipset_aggregation`` of that single aggregation, all at
+     ``tests/test_aggregate.py``'s setup, and ``prove_aggregation`` of
+     ``fibonacci_vm(100)`` at ``BasefoldParams()``; the matching key-less
+     verifier must accept each, and reject the single aggregation with a
+     changed public value, a wrong geometry flag and a changed class-main
+     eval. It prints phase 6's ``{"shards": {...}}`` line (plan, per-shard,
      pipelined and stitch-verify seconds, tokens and quark rounds per shard,
-     peak device memory); phase 7's span tree and its ``{"precompiles":
+     peak device memory, the golden gate) and phase 7's ``{"precompiles":
      {...}}`` line (steps, rows per precompile chip, seconds per stage and
      witgen step, proof bytes, peak device memory, launches, the golden
-     guests); the card line and, last,
-     ``{"ok": true, "device": {...}}``.
+     guests), the span tree, the ``{"aggregation": {...}}`` line
+     (chips, rows, cells, seconds of the witness, the prove by stage, the
+     key rebuild and the verification, proof bytes, peak device memory,
+     launches, the golden results) and the ``{"kernel_shapes": ...}`` line
+     with every shape of phase 2 and the real inputs of phases 6, 7 and 9;
+     the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
 last line. Without a CUDA device it exits 2 and prints no result.
@@ -169,7 +202,7 @@ from ceno_tpu_torch.sumcheck import fused, terms
 from ceno_tpu_torch.sumcheck import prover as sc_prover
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 from ceno_tpu_torch.utils import cuda_build, spans
-from ceno_tpu_torch.zkvm import e2e, layout, scheme, serialize, shard, witgen
+from ceno_tpu_torch.zkvm import aggregate, e2e, layout, scheme, serialize, shard, witgen
 from ceno_tpu_torch.zkvm.chips.opcodes import TraceView, build_opcode_chips
 from ceno_tpu_torch.zkvm.tables import ZKVMConfig
 
@@ -194,7 +227,7 @@ MULS_PER_PERM = 772 * 3  # Montgomery products per permutation x 3 multiplies
 
 # (C, log2 M) main-path shapes of K1: the witness commit, the fixed commit and
 # the first witness fold tree (4 rows for one point); K2 runs over their trees
-K1_SHAPES = [(61, 22), (13, 19), (4, 21)]
+K1_SHAPES = [(61, 22), (13, 19), (4, 21), (415, 18)]  # the last: the aggregation's commit
 SMALL_TREES = range(1, 12)  # log2 of the leaf counts of the small K2 trees
 
 # The main path's largest sumchecks, whose shapes phase 2 holds K6a and K6b
@@ -239,6 +272,20 @@ SECP_CLASS_MAIN = {"what": "secp guest", "chips": ("lw", "halt", "secp256k1_add"
                    "log_n": 1, "base": 3094, "ext": 7, "terms": 39422, "db": 2, "de": 1,
                    "deg": 3}
 PRECOMPILE_CLASS_MAINS = KECCAK_CLASS_MAINS + [SECP_CLASS_MAIN]
+# The aggregation's class mains (phase 9 checks that the aggregation of the
+# 2^20 fibonacci proof runs them): the first round of its 2^15 class
+# (pcs_merkle_rows, 319 columns with the Poseidon2 gadget, beside fs_scav)
+# and of its 2^12 class (fs_duplex, the in-circuit transcript, beside
+# jag_eq_rows), both of degree 8 with 7 base factors a term, and of its
+# 2-row class of 16 chips, the one with the most terms.
+AGG_CLASS_MAINS = [
+    {"what": "aggregation", "chips": ("pcs_merkle_rows", "fs_scav"), "log_n": 15, "base": 321,
+     "ext": 2, "terms": 3210, "db": 7, "de": 1, "deg": 8},
+    {"what": "aggregation", "chips": ("jag_eq_rows", "fs_duplex"), "log_n": 12, "base": 331,
+     "ext": 2, "terms": 3540, "db": 7, "de": 1, "deg": 8},
+    {"what": "aggregation", "chips": ("tower_g*_ends", "fs_pv", "..."), "log_n": 1,
+     "base": 1369, "ext": 16, "terms": 6299, "db": 2, "de": 1, "deg": 3},
+]
 # K5/K7's steps in the 2^20-step fibonacci prove, whose shapes phase 2 times
 # it at (phase 5 checks that its first prove makes each): (what, words
 # absorbed, powers). Each starts where the prove's do, after a sample: pos 0,
@@ -533,7 +580,7 @@ def main_path_sumchecks(rng) -> list:
     dev_idx = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)  # noqa: E731
     out.append((f"tower level {TOWER_LOG_N} of the 2^{TOWER_LOG_N + 1} group", base, ext,
                 dev_idx(bidx), dev_idx(eidx), pows[:, torch.from_numpy(alpha_idx).to(DEVICE)], deg))
-    for cm in CLASS_MAINS + [SHARD_CLASS_MAIN] + PRECOMPILE_CLASS_MAINS:
+    for cm in CLASS_MAINS + [SHARD_CLASS_MAIN] + PRECOMPILE_CLASS_MAINS + AGG_CLASS_MAINS:
         base, ext = random_banks(rng, cm["base"], cm["ext"], 1 << cm["log_n"])
         t = cm["terms"]
         what = " ".join(filter(None, (cm.get("what"), f"2^{cm['log_n']} class main")))
@@ -1340,7 +1387,8 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
     The launch counts are reset just before keygen and before the second
     prove, and read just after each. Returns (the ``e2e`` line, the timed
     prove's span report, {"keygen" | "prove": (launches, planned trees)},
-    (the key, the halted vm, the trace) for the continuations phase)."""
+    (the key, the halted vm, the trace, the proof) for the continuations
+    and aggregation phases)."""
     seconds = {}
     t0 = time.time()
     vm = programs.fibonacci_vm(n)
@@ -1418,7 +1466,7 @@ def run_e2e(n: int, cfg, params, key_check=None) -> tuple:
             "duplex_steps": [[n_in, n_pows, c] for (n_in, n_pows), c in sorted(steps.items())]}
     if sorted(groups) != sorted(f"2^{n_t.bit_length() - 1}" for n_t in proof.tower_groups):
         fail(f"e2e: tower groups {sorted(groups)} against the proof's {sorted(proof.tower_groups)}")
-    return line, span_report, counted, (pk, vm, trace)
+    return line, span_report, counted, (pk, vm, trace, proof)
 
 
 def e2e_golden_check() -> dict:
@@ -1984,7 +2032,290 @@ def run_keccak_loop(n: int, cfg, params, keep: dict | None = None) -> tuple:
     return line, span_report, counted, shapes
 
 
+# -- phase 9: aggregation -----------------------------------------------------------
+
+AGG_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "aggregation_fibonacci.json")
+AGG_GOLDEN_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
+AGG_WORKERS = 6  # phase 9's untimed jobs: 4 golden entries, 2 golden gates, 2 checks
+AGG_ERRORS = PROTOCOL_ERRORS + (aggregate.AggError, eccquark.EccError,
+                                serialize.ProofFormatError)
+
+
+def agg_digests(key, aproof, params) -> dict:
+    """An aggregation proof's bytes' SHA-256 and length, its key's chip count
+    and the SHA-256 of the key's ``digest_elems`` (as the golden file has them)."""
+    data = serialize.agg_proof_to_bytes(aproof, params)
+    return {"proof_sha256": hashlib.sha256(data).hexdigest(), "proof_bytes": len(data),
+            "chips": len(key.chips),
+            "key_sha256": hashlib.sha256(
+                np.asarray(key.digest_elems(), np.uint64).tobytes()).hexdigest()}
+
+
+def agg_tampered(aproof) -> list:
+    """(what, proof) pairs the key-less verifier must reject: a public value
+    (the last shard's exit code in the aggregation statement), a wrong
+    geometry flag (the last shard claimed not last), one witness eval of the
+    largest class main."""
+    out = []
+    bad = copy.deepcopy(aproof)
+    bump(bad.public_values, len(bad.public_values) - layout.N_PUBLIC_VALUES
+         + layout.PV_EXIT_CODE_LO)
+    out.append(("public value", bad))
+    geo = list(aproof.geometry)
+    geo[-1] = dataclasses.replace(geo[-1], is_last=False)
+    out.append(("geometry flag", dataclasses.replace(aproof, geometry=geo)))
+    bad = copy.deepcopy(aproof)
+    bump(bad.class_main[max(bad.class_main)].wit_evals[0], (0, 0))
+    out.append(("class-main eval", bad))
+    return out
+
+
+def check_agg_rejections(verify, bads: list, what: str) -> dict:
+    """Each (what, proof) of ``bads`` must make ``verify`` raise one of
+    AGG_ERRORS; returns {what: the error's type}."""
+    rejected = {}
+    for w, bad in bads:
+        try:
+            verify(bad)
+        except AGG_ERRORS as e:
+            log(f"{what}: a changed {w} rejected ({type(e).__name__}: {str(e)[:80]})")
+            rejected[w] = type(e).__name__
+        else:
+            fail(f"{what}: an aggregation proof with a changed {w} was accepted")
+    return rejected
+
+
+def agg_golden_entry(name: str, want: dict) -> dict:
+    """One entry of AGG_GOLDEN proved by the port on DEVICE: the shard proof
+    (or proofs) of its setup, then its aggregation (``prove_aggregation``,
+    ``prove_shard_aggregation``, or ``prove_chipset_aggregation`` over the
+    single aggregation), whose digests must equal the entry's; the matching
+    key-less verifier must accept it, and the single aggregation's tampered
+    proofs must be rejected."""
+    t0 = time.time()
+    cfg, params = ZKVMConfig(**want["cfg"]), bf.BasefoldParams(**want["params"])
+    vm = programs.fibonacci_vm(int(re.search(r"\d+", want["program"]).group()))
+    trace = native.run_trace_native(vm)
+    pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
+    if name == "sharded":
+        sproof = shard.prove_shards(pk, vm, trace, want["max_steps_per_shard"], device=DEVICE)
+        key, aproof, n = aggregate.prove_shard_aggregation(pk.vk, sproof, params=params,
+                                                           device=DEVICE)
+        got = {"n_shards": n}
+
+        def verify(p):
+            return aggregate.verify_shard_aggregation(p, n, pk.vk, params=params)
+    else:
+        proof = scheme.prove(pk, vm, trace, e2e.public_values_from_vm(vm, cfg), device=DEVICE)
+        key, aproof = aggregate.prove_aggregation(pk.vk, proof, params=params, device=DEVICE)
+        got = {}
+
+        def verify(p):
+            return aggregate.verify_aggregation(p, pk.vk, params=params)
+        if name == "level2":
+            inner_key, inner = key, aproof
+            key, aproof = aggregate.prove_chipset_aggregation(inner_key, [inner], params=params,
+                                                              device=DEVICE)
+
+            def verify(p):
+                return aggregate.verify_chipset_aggregation(p, inner_key, [inner.public_values],
+                                                            params=params)
+    sync()
+    got.update(agg_digests(key, aproof, params))
+    got["prove_s"] = time.time() - t0
+    if {k: got[k] for k in want if k in got} != {k: want[k] for k in got if k in want}:
+        fail(f"aggregation ({name}): the port's {want['entry']} of {want['program']} differs "
+             f"from the reference's: {got} against {want}")
+    t0 = time.time()
+    if verify(aproof) is not True:
+        fail(f"aggregation ({name}): the key-less verifier did not accept the honest proof")
+    got["verify_s"] = time.time() - t0
+    log(f"aggregation ({name}): {want['entry']} of {want['program']} equals the reference's "
+        f"({got['proof_bytes']} bytes, {got['chips']} chips) in {got['prove_s']:.2f}s; "
+        f"verified key-less in {got['verify_s']:.2f}s")
+    if name == "single":
+        got["rejected"] = check_agg_rejections(verify, agg_tampered(aproof),
+                                               f"aggregation ({name})")
+    return got
+
+
+def agg_golden_check(pool, names=None) -> dict:
+    """:func:`agg_golden_entry` for each entry of AGG_GOLDEN (or ``names``),
+    each in a worker of ``pool`` (:func:`agg_pool`); returns {name: the
+    worker's pending result}, which :func:`agg_results` waits for."""
+    with open(AGG_GOLDEN) as f:
+        want = json.load(f)
+    names = names or sorted(want, key=lambda n: -AGG_GOLDEN_ORDER.index(n))
+    return {name: pool.apply_async(_agg_job, (agg_golden_entry, name, want[name]))
+            for name in names}
+
+
+# the golden entries, longest last: a pool starts them longest first
+AGG_GOLDEN_ORDER = ["single", "default", "sharded", "level2"]
+
+
+def agg_pool(n: int):
+    """``n`` worker processes (spawned; each its own CUDA context, torch on one
+    thread) for phase 9's untimed work: the golden entries and gates and the
+    checks of the 2^20 aggregation. The caller terminates it."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(n, initializer=_agg_worker_init,
+                                                     initargs=(T0, DEVICE))
+
+
+def _agg_worker_init(t0: float, device: str) -> None:
+    global T0, DEVICE
+    T0, DEVICE = t0, device
+    torch.set_num_threads(1)
+
+
+def _agg_job(fn, *args):
+    """``fn(*args)`` in a worker: a failure comes back as an exception (a
+    SystemExit would end the worker and leave its result pending)."""
+    try:
+        return fn(*args)
+    except SystemExit as e:
+        raise RuntimeError(str(e)) from None
+
+
+def golden_gates(pool) -> dict:
+    """Phases 7 and 6's golden gates (:func:`precompile_golden_check`,
+    :func:`shard_golden_check`), each in a worker of ``pool``: pending
+    (result, seconds) for :func:`agg_results`."""
+    return {what: pool.apply_async(_agg_job, (_timed, fn))
+            for what, fn in (("precompiles golden", precompile_golden_check),
+                             ("shards golden", shard_golden_check))}
+
+
+def _timed(fn) -> tuple:
+    t0 = time.time()
+    out = fn()
+    return out, time.time() - t0
+
+
+def agg_results(pending: dict) -> dict:
+    """{name: result} of :func:`agg_golden_check`, :func:`golden_gates` or
+    :func:`agg_verifications`:
+    each worker's result, waited for (a worker's failure fails the run)."""
+    out = {}
+    for name, r in pending.items():
+        try:
+            out[name] = r.get()
+        except RuntimeError as e:
+            fail(f"{name}: {e}")
+    return out
+
+
+def agg_verify_job(what: str, vk, data: bytes) -> dict:
+    """One key-less verification of the aggregation proof ``data``
+    (``agg_proof_to_bytes``) against ``vk``, with spans on: ``honest``
+    verifies the proof; ``parsed`` also checks that the parsed proof writes
+    back to the same bytes; ``public value`` changes the last shard's exit
+    code in the statement, which must be rejected. Returns its seconds (and
+    those of the key rebuild and of ``verify_chipset``) or the error."""
+    aproof, params = serialize.agg_proof_from_bytes(data)
+    if what == "parsed" and serialize.agg_proof_to_bytes(aproof, params) != data:
+        fail("aggregation: the parsed proof does not write back to the same bytes")
+    if what == "public value":
+        return check_agg_rejections(lambda p: aggregate.verify_aggregation(p, vk, params=params),
+                                    agg_tampered(aproof)[:1], "aggregation")
+    spans.enable()
+    t0 = time.time()
+    if aggregate.verify_aggregation(aproof, vk, params=params) is not True:
+        fail(f"aggregation: the key-less verifier did not accept the {what} proof")
+    out = {"seconds": time.time() - t0}
+    tree = spans.tree()
+    spans.disable()
+    out["key_rebuild"] = tree["agg/key-rebuild"]["total"]
+    out["verify_chipset"] = tree["agg/verify-chipset"]["total"]
+    log(f"aggregation: the {what} proof verified key-less in {out['seconds']:.2f}s (key "
+        f"rebuild {out['key_rebuild']:.2f}s)")
+    return out
+
+
+def agg_verifications(pool, vk, data: bytes) -> dict:
+    """:func:`agg_verify_job` for the parsed and the tampered proof, each in
+    a worker of ``pool`` (pending results for :func:`agg_results`)."""
+    return {what: pool.apply_async(_agg_job, (agg_verify_job, what, vk, data))
+            for what in ("parsed", "public value")}
+
+
+def agg_shapes(aproof) -> dict:
+    """The aggregation proof's class-main heights and tower-group sizes, as
+    log2."""
+    return {"classes": [h.bit_length() - 1 for h in sorted(aproof.class_main)],
+            "tower_groups": [n.bit_length() - 1 for n in sorted(aproof.tower_groups)]}
+
+
+def run_aggregation(pk, proof, n: int, keep: dict | None = None) -> tuple:
+    """Aggregate phase 5's proof of fibonacci_vm(n) with its key, as a user's
+    ``aggregate`` command does: ``prove_aggregation`` on DEVICE with spans,
+    the device audit and the launch counts (reset just before, read just
+    after); then the key-less ``verify_aggregation`` of the proof, timed
+    (:func:`agg_verify_job`). Returns (the ``aggregation`` line, the span
+    report, the launches, the first rounds of its sumchecks, the proof's
+    bytes)."""
+    seconds = {}
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spans.enable()
+    with prove_audit() as seen, sumcheck_calls(keep) as calls:
+        reset_launches()
+        t0 = time.time()
+        key, aproof = aggregate.prove_aggregation(pk.vk, proof, device=DEVICE)
+        sync()
+        seconds["prove_aggregation"] = time.time() - t0
+        counted = launches()
+    tree, report = spans.tree(), spans.report(min_seconds=0.01)
+    spans.disable()
+    checked = on_device(seen)
+    shapes = first_rounds(calls)
+    del calls
+    peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
+    seconds["witness"] = tree["agg/witness"]["total"]
+    seconds["prove"] = seconds["prove_aggregation"] - seconds["witness"]
+    stages = {"commit": "agg/commit/", "records": "agg/records", "towers": "agg/towers",
+              "class_main": "agg/class-main/", "opening": "agg/open/"}
+    seconds["prove_stages"] = {st: sum(node["total"] for nm, node in tree.items()
+                                       if nm.startswith(prefix))
+                               for st, prefix in stages.items()}
+    rows = {name: int(k) for (name, _, _, _), k in zip(key.chips, aproof.num_instances)}
+    log(f"aggregation: {len(key.chips)} chips, {sum(rows.values())} rows; proved in "
+        f"{seconds['prove_aggregation']:.2f}s (witness {seconds['witness']:.2f}s); on {DEVICE}: "
+        f"{checked}")
+    data = serialize.agg_proof_to_bytes(aproof, pk.params)
+    line = {"program": f"fibonacci_vm({n})", "device": DEVICE,
+            "params": dataclasses.asdict(pk.params), "chips": len(key.chips),
+            "rows": sum(rows.values()), "rows_per_chip": rows,
+            "padded_rows": sum(max(2, 1 << max(0, (k - 1).bit_length())) for k in rows.values()),
+            "cells": sum(c.n_wit * max(2, 1 << max(0, (k - 1).bit_length()))
+                         for (_, c, _, _), k in zip(key.chips, aproof.num_instances)),
+            "seconds": seconds, "proof_bytes": len(data), "max_memory_allocated": peak,
+            "launches": counted, "checked_on_device": checked,
+            "shapes": agg_shapes(aproof), "sumcheck_first_rounds": len(shapes),
+            "spans": {name: node["total"] for name, node in tree.items()}}
+    del key, aproof
+    honest = agg_verify_job("honest", pk.vk, data)
+    seconds["verify_aggregation"] = honest["seconds"]
+    seconds["key_rebuild"] = honest["key_rebuild"]
+    seconds["verify_chipset"] = honest["verify_chipset"]
+    return line, report, counted, shapes, data
+
+
 def main() -> int:
+    pools = []
+    try:
+        return _main(pools)
+    finally:
+        for pool in pools:
+            pool.terminate()
+            pool.join()
+
+
+def _main(pools: list) -> int:
+    """The phases; each worker pool it starts goes into ``pools``, which
+    :func:`main` terminates."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2037,7 +2368,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with phase("5 e2e"):
-        e2e_line, e2e_report, e2e_counted, (pk, vm, trace) = run_e2e(
+        e2e_line, e2e_report, e2e_counted, (pk, vm, trace, proof) = run_e2e(
             E2E_ITERS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams(), key_check=fixed_commit_check)
         check_duplex_steps({(a, b): c for a, b, c in e2e_line["duplex_steps"]})
         t = time.time()
@@ -2046,32 +2377,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with phase("6 continuations"):
-        t = time.time()
-        shard_golden = shard_golden_check()
-        golden_s = time.time() - t
         kept = {"shard-RAM 2^9 class main": main_shape(SHARD_CLASS_MAIN)}
         shard_line, shard_report, shard_counted = run_continuations(pk, vm, trace, E2E_ITERS,
                                                                     kept)
-        shard_line["golden"] = shard_golden
-        shard_line["seconds"]["golden_check"] = golden_s
-        del pk, vm, trace
+        del vm, trace
         shape_rows += real_k6a_rows(kept, ptxas)
         del kept
     torch.cuda.empty_cache()
 
     with phase("7 precompiles"):
-        t = time.time()
-        golden = precompile_golden_check()
-        golden["seconds"] = time.time() - t
-        check_shapes_ran([main_shape(SECP_CLASS_MAIN)], golden["secp"].pop("sumcheck_shapes"),
-                         "secp guest's prove")
         # bench.py's ZKVMConfig and BasefoldParams(), as phase 5
         kept = {"keccak core 2^15 class main": main_shape(KECCAK_CLASS_MAINS[0])}
         pre_line, pre_report, pre_counted, pre_shapes = run_keccak_loop(
             KECCAK_PERMS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams(), kept)
         check_shapes_ran([main_shape(cm) for cm in KECCAK_CLASS_MAINS], pre_shapes,
                          "keccak loop's prove")
-        pre_line["golden"] = golden
         shape_rows += real_k6a_rows(kept, ptxas)
         del kept
 
@@ -2090,7 +2410,6 @@ def main() -> int:
             k["launches"] = e2e_counted["prove"][0][k["name"]]
             if k["launches"] <= 0:
                 fail(f"kernel {k['name']} was not launched on the main path")
-        print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
         print(gkr_report, flush=True)
         print(json.dumps({"gkr": gkr}), flush=True)
         print(e2e_report, flush=True)
@@ -2102,13 +2421,54 @@ def main() -> int:
         for name, c in shard_counted.items():
             if c <= 0:
                 fail(f"shards: kernel {name} was not launched in the sharded prove")
-        print(json.dumps({"shards": shard_line}), flush=True)
         print(pre_report, flush=True)
         log(f"precompiles: launches over the keccak loop's prove: {pre_counted}")
         for name, c in pre_counted.items():
             if c <= 0:
                 fail(f"precompiles: kernel {name} was not launched in the keccak loop's prove")
+    torch.cuda.empty_cache()
+
+    with phase("9 aggregation"):
+        kept = {f"aggregation's 2^{AGG_CLASS_MAINS[0]['log_n']} class main":
+                main_shape(AGG_CLASS_MAINS[0])}
+        agg_line, agg_report, agg_counted, agg_rounds, agg_data = run_aggregation(
+            pk, proof, E2E_ITERS, kept)
+        check_shapes_ran([main_shape(cm) for cm in AGG_CLASS_MAINS], agg_rounds,
+                         "aggregation's prove")
+        shape_rows += real_k6a_rows(kept, ptxas)
+        del kept, proof
+        torch.cuda.empty_cache()
+        # nothing is timed from here on: the golden entries and gates and the
+        # checks of the parsed and the tampered proof run in workers beside
+        # each other, longest first
+        pool = agg_pool(AGG_WORKERS)
+        pools.append(pool)
+        t = time.time()
+        pending = agg_golden_check(pool)
+        pending.update(golden_gates(pool))
+        pending.update(agg_verifications(pool, pk.vk, agg_data))
+        checks = agg_results(pending)
+        shard_line["golden"], shard_line["seconds"]["golden_check"] = \
+            checks.pop("shards golden")
+        golden, golden_s = checks.pop("precompiles golden")
+        golden["seconds"] = golden_s
+        check_shapes_ran([main_shape(SECP_CLASS_MAIN)], golden["secp"].pop("sumcheck_shapes"),
+                         "secp guest's prove")
+        pre_line["golden"] = golden
+        agg_line["rejected"] = checks.pop("public value")
+        checks.pop("parsed")  # verified, or the run failed; its seconds are not kept
+        agg_line["golden"] = checks
+        agg_line["golden"]["seconds"] = time.time() - t
+        del pk, agg_data
+        print(json.dumps({"shards": shard_line}), flush=True)
         print(json.dumps({"precompiles": pre_line}), flush=True)
+        print(agg_report, flush=True)
+        log(f"aggregation: launches over the aggregation's prove: {agg_counted}")
+        for name, c in agg_counted.items():
+            if c <= 0:
+                fail(f"aggregation: kernel {name} was not launched in the aggregation's prove")
+        print(json.dumps({"aggregation": agg_line}), flush=True)
+        print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -177,12 +177,12 @@ def test_launch_plan_matches_the_proof(runs):
 
 
 def test_decoder_whitelist():
-    # a class the reference's whitelist has and the port's leaves out (M11)
-    fake = dataclasses.make_dataclass("AggProof", [("shards", list)])
+    # a class the reference's whitelist has and the port's leaves out (WHIR)
+    fake = dataclasses.make_dataclass("WhirProof", [("iters", list)])
     buf = io.BytesIO()
     buf.write(serialize.MAGIC)
     serialize._encode(buf, {"proof": fake([])})
-    with pytest.raises(serialize.ProofFormatError, match="AggProof"):
+    with pytest.raises(serialize.ProofFormatError, match="WhirProof"):
         serialize.proof_from_bytes(buf.getvalue())
     # the continuations' classes pass it
     from ceno_tpu_torch.gkr.eccquark import EccQuarkProof

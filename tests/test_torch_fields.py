@@ -110,6 +110,20 @@ def test_ext_unary_ops():
     np.testing.assert_array_equal(one, np.tile(np.array([[1], [0], [0], [0]], np.uint64), nz.shape[1]))
 
 
+@pytest.mark.parametrize("fill", ["random", 0, 1, P - 1])
+def test_ext_host_mul_single_equals_broadcast_path(fill):
+    # two (4,) elements take the Python-int path, (..., 4) arrays the numpy one
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, P, size=(6, 4), dtype=np.uint64) if fill == "random" else \
+        np.full((6, 4), fill, np.uint64)
+    b = rng.integers(0, P, size=(6, 4), dtype=np.uint64)
+    want = exth.mul(a, b)
+    for i in range(a.shape[0]):
+        np.testing.assert_array_equal(exth.mul(a[i], b[i]), want[i])
+        np.testing.assert_array_equal(exth.mul(b[i], a[i]), want[i])
+    np.testing.assert_array_equal(exth.mul(a[0], b), exth.mul(a[:1], b))
+
+
 def test_ext_host_mirror_and_py_mul():
     rng = np.random.default_rng(9)
     a = rng.integers(0, P, size=(20, 4), dtype=np.uint64)

@@ -31,7 +31,7 @@ def _sources():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert len(names) >= 69, names
+    assert len(names) >= 77, names
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"       # any `import jax` raises ImportError
@@ -69,3 +69,57 @@ def test_no_jax_or_reference_imports_in_sources():
     for path in _sources():
         hits = pattern.findall(open(path).read())
         assert not hits, (path, hits)
+
+
+AGGREGATION_MODULES = [
+    "ceno_tpu_torch.utils.replay", "ceno_tpu_torch.gkr.fs_chain", "ceno_tpu_torch.gkr.recursion",
+    "ceno_tpu_torch.gkr.pcs_verify", "ceno_tpu_torch.gkr.claim_link",
+    "ceno_tpu_torch.gkr.ec_verify", "ceno_tpu_torch.zkvm.aggregate",
+    "ceno_tpu_torch.zkvm.skeleton",
+]
+
+
+def test_aggregation_modules_stand_alone():
+    """The aggregation slice's modules are the port's own: found among its
+    modules, imported and driven (a recording transcript, the replay waiver,
+    the chain cap, the proof format) with jax and ceno_tpu blocked."""
+    assert set(AGGREGATION_MODULES) <= set(_modules())
+    for name in AGGREGATION_MODULES:
+        path = os.path.join(ROOT, *name.split(".")) + ".py"
+        assert path in _sources(), path
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceno_tpu'] = None\n"
+        "import threading\n"
+        "import numpy as np\n"
+        "from ceno_tpu_torch.gkr import fs_chain as FS\n"
+        "from ceno_tpu_torch.hash.transcript import Transcript\n"
+        "from ceno_tpu_torch.utils import replay\n"
+        "from ceno_tpu_torch.zkvm import aggregate, serialize\n"
+        "t, live = FS.ChainTranscript(b'x'), Transcript(b'x')\n"
+        "for tr in (t, live):\n"
+        "    tr.append(np.arange(11, dtype=np.uint64))\n"
+        "assert t.sample_ext() == live.sample_ext() and len(t.rows) == 3\n"
+        "with replay.structure_replay():\n"
+        "    seen = []\n"
+        "    th = threading.Thread(target=lambda: seen.append(replay.structure_only()))\n"
+        "    th.start(); th.join()\n"
+        "    assert replay.structure_only() and seen == [False]\n"
+        "try:\n"
+        "    aggregate.build_aggregation_witness_multi(None, [(None, {})] * 60, fs=True)\n"
+        "except aggregate.AggError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise SystemExit('chain cap not enforced')\n"
+        "assert {'AggProof', 'ShardGeometry'} <= set(serialize._whitelist())\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "(m.split('.')[0] in ('jax', 'jaxlib', 'ceno_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('aggregation ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "aggregation ok" in r.stdout

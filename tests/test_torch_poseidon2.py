@@ -77,6 +77,14 @@ def test_permutation_matches_reference(shape):
     np.testing.assert_array_equal(p2.permute_host(edges), rp2.permute_host(edges))
 
 
+@pytest.mark.parametrize("fill", ["random", 0, 1, P - 1])
+def test_permute_host_single_state_equals_vector_path(fill):
+    # a (16,) state takes the Python-int path, a (16, N) batch the numpy one
+    states = _rand(11, (16, 5)) if fill == "random" else np.full((16, 5), fill, np.uint64)
+    got = np.stack([p2.permute_host(states[:, j]) for j in range(states.shape[1])], 1)
+    np.testing.assert_array_equal(got, p2.permute_host(states))
+
+
 def test_sponge_helpers_match_reference():
     for n in (0, 1, 7, 8, 9, 61):
         e = _rand(n, n)

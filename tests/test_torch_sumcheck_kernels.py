@@ -509,14 +509,14 @@ def test_chip_smoke_k6a_rows_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "graph_ms", lambda fn, n=200: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "TOWER_LOG_N", 4)
     monkeypatch.setattr(cs, "QUARK_LOG_N", 3)
-    for name in ("CLASS_MAINS", "PRECOMPILE_CLASS_MAINS"):
+    for name in ("CLASS_MAINS", "PRECOMPILE_CLASS_MAINS", "AGG_CLASS_MAINS"):
         monkeypatch.setattr(cs, name, [dict(cm, log_n=min(cm["log_n"], 3))
                                        for cm in getattr(cs, name)])
     monkeypatch.setattr(cs, "SHARD_CLASS_MAIN", dict(cs.SHARD_CLASS_MAIN, log_n=3))
     kernels, rows = cs.sumcheck_kernels_vs_plain(np.random.default_rng(1), {})
     assert [k["name"] for k in kernels] == ["round_evals", "fold", "duplex"]
     k6a = [r for r in rows if r["name"] == "round_evals"]
-    assert len(k6a) == 8 and all(r["max_abs_err"] == 0 for r in k6a)
+    assert len(k6a) == 11 and all(r["max_abs_err"] == 0 for r in k6a)
     assert k6a[0]["plan"]["t_lanes"] * k6a[0]["plan"]["chunks"] == 10  # the tower's live terms
     for r in k6a:
         (key,) = r["ptxas"]

@@ -2,7 +2,7 @@
 """Where the card's time goes in chip_smoke's GKR phase or in a whole
 prove, by stage and by operation, from a torch.profiler trace.
 
-    python3 tools/torch_gkr_profile.py [--iters N] [--e2e | --shards | --keccak [P]]
+    python3 tools/torch_gkr_profile.py [--iters N] [--e2e | --shards | --keccak [P] | --agg]
 
 Runs ``fibonacci_vm(N)`` (default chip_smoke.GKR_ITERS, the full width) on
 the native core. Without an option it assigns the opcode chips and proves
@@ -12,7 +12,9 @@ and runs the whole ``zkvm/scheme.prove``; with ``--shards`` it makes the
 same key and runs ``zkvm/shard.prove_shards`` over two shards, pipelined
 (chip_smoke phase 6); with ``--keccak`` it runs chip_smoke's keccak loop
 of P permutations (default chip_smoke.KECCAK_PERMS, phase 7b) instead of
-the fibonacci guest, as ``--e2e`` does. Either way it proves once
+the fibonacci guest, as ``--e2e`` does; with ``--agg`` it makes the same
+key, proves the fibonacci once and runs ``zkvm/aggregate.prove_aggregation``
+of that proof (chip_smoke phase 9). Either way it proves once
 unprofiled (warm-up), then
 once more under ``torch.profiler`` with every stage and every operation
 family wrapped in a ``record_function`` range:
@@ -22,7 +24,8 @@ family wrapped in a ``record_function`` range:
               (``generate_witness``), commit (``basefold.commit``) and
               openings (``jagged.open_jagged``); with ``--shards`` these and
               plan (``plan_shards``) and ec_sum (``prove_ec_sum``), witgen
-              then running on the pipeline's host thread;
+              then running on the pipeline's host thread; with ``--agg``
+              witness (``build_aggregation_witness``) in witgen's place;
   operations: record_eval (the record builder, K9), tower_layers
               (``product_layers`` / ``logup_layers``, K8's trees),
               round_evals and folds (the sumcheck term kernels K6a and
@@ -73,7 +76,7 @@ from ceno_tpu_torch.hash import poseidon2_merkle as pm  # noqa: E402
 from ceno_tpu_torch.mle import ops  # noqa: E402
 from ceno_tpu_torch.pcs import basefold, jagged, ntt  # noqa: E402
 from ceno_tpu_torch.sumcheck import fused, terms  # noqa: E402
-from ceno_tpu_torch.zkvm import e2e, scheme, shard, witgen  # noqa: E402
+from ceno_tpu_torch.zkvm import aggregate, e2e, scheme, shard, witgen  # noqa: E402
 from ceno_tpu_torch.zkvm.tables import ZKVMConfig  # noqa: E402
 
 STAGES = {"records": (gkr_chip, "build_tower_inputs"), "towers": (gkr_chip, "prove_group_towers"),
@@ -82,6 +85,8 @@ E2E_STAGES = {"witgen": (scheme, "generate_witness"), "commit": (basefold, "comm
               **STAGES, "openings": (jagged, "open_jagged")}
 SHARD_STAGES = {**E2E_STAGES, "witgen": (witgen, "generate_witness"),
                 "plan": (shard, "plan_shards"), "ec_sum": (eccquark, "prove_ec_sum")}
+AGG_STAGES = {"witness": (aggregate, "build_aggregation_witness"),
+              **{k: v for k, v in E2E_STAGES.items() if k != "witgen"}}
 OPS = {"record_eval": [(gkr_chip, "build_records")],
        "tower_layers": [(tower, "product_layers"), (tower, "logup_layers")],
        "round_evals": [(terms, "round_evals")],
@@ -229,13 +234,15 @@ def main() -> int:
                       help="profile zkvm/shard.prove_shards over two shards, pipelined")
     mode.add_argument("--keccak", type=int, nargs="?", const=cs.KECCAK_PERMS, metavar="P",
                       help="profile zkvm/scheme.prove of the keccak loop of P permutations")
+    mode.add_argument("--agg", action="store_true",
+                      help="profile zkvm/aggregate.prove_aggregation of the fibonacci proof")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_gkr_profile: no CUDA device", file=sys.stderr)
         return 2
     print(cs.card_line(), flush=True)
     cs.DEVICE = "cuda"
-    if args.e2e or args.shards or args.keccak is not None:
+    if args.e2e or args.shards or args.agg or args.keccak is not None:
         t0 = time.time()
         if args.keccak is None:
             vm, program = cs.programs.fibonacci_vm(args.iters), f"fibonacci_vm({args.iters})"
@@ -252,6 +259,12 @@ def main() -> int:
 
             def prove():
                 shard.prove_shards(pk, vm, trace, cs.max_steps_per_shard(trace.n), device="cuda")
+        elif args.agg:
+            stages, key = AGG_STAGES, "agg_profile"
+            proof = scheme.prove(pk, vm, trace, pv, device="cuda")
+
+            def prove():
+                aggregate.prove_aggregation(pk.vk, proof, device="cuda")
         else:
             stages, key = E2E_STAGES, "e2e_profile" if args.keccak is None else "keccak_profile"
 
