@@ -30,7 +30,9 @@ and proof objects. ``keygen`` and ``prove`` run their device work (the fixed
 and witness commits, records, towers, class mains, openings) on ``device``,
 the card unless the caller names another; the witness, the transcript and
 the verifier stay on the host in numpy, as in the reference. The port's
-keygen commits the fixed stack directly (no ``commit_cached``). The EC-sum
+keygen commits the fixed stack through ``pcs/commitcache.commit_cached``, as
+the reference's does (a plain commit unless ``CENO_TPU_TORCH_COMMIT_CACHE``
+names a cache directory). The EC-sum
 quark proofs run their zerochecks on ``device`` too. The verifier carries
 the reference's aggregation hooks (``capture``, a recording ``transcript``)
 and waives its value checks inside ``utils/replay.structure_replay()``."""
@@ -50,6 +52,7 @@ from ..gkr import chip as chiplib
 from ..gkr import eccquark
 from ..gkr.chip import structural_table
 from ..pcs import basefold, jagged
+from ..pcs.commitcache import commit_cached
 from ..utils import spans
 from ..pcs.basefold import BasefoldParams, Claim
 from .chips import build_all_chips
@@ -207,9 +210,10 @@ def keygen(program_words: dict, cfg: ZKVMConfig | None = None,
         program_words, cfg, data_image)
     n_pre = len(opcode_chips) + len(shard_chips) + len(dyn_chips)
     layout, mats = fixed_matrices(tables, n_pre, params)
-    # the fixed commit is keygen's only device work
+    # the fixed commit is keygen's only device work; it is content-addressed
+    # cacheable (CENO_TPU_TORCH_COMMIT_CACHE, pcs/commitcache.py)
     device = device or DEFAULT_DEVICE
-    committed = {k: basefold.commit(m, params, device=device) for k, m in mats.items()}
+    committed = {k: commit_cached(m, params, device=device) for k, m in mats.items()}
     return ProvingKey(
         metas, tables, opcode_chips, shard_chips, dyn_chips, cfg, params,
         committed, layout, program_words, data_image,

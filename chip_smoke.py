@@ -157,7 +157,30 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      key rebuild and the verification, proof bytes, peak device memory,
      launches, the golden results) and the ``{"kernel_shapes": ...}`` line
      with every shape of phase 2 and the real inputs of phases 6, 7 and 9;
-     the card line and, last, ``{"ok": true, "device": {...}}``.
+     the card line and, last, ``{"ok": true, "device": {...}}``;
+ 10. the command line, the key cache and row sharding. First, with nothing
+     beside it, phase 5's keygen again with ``CENO_TPU_TORCH_COMMIT_CACHE``
+     naming a temporary directory that holds a copy of GOLDEN: it must hit
+     that file (write nothing) and give phase 5's fresh fixed commitment
+     (cols, codeword, leaves, levels, root); the fixed commit alone is timed
+     fresh and from the cache (the ``{"key_cache": ...}`` line). Then, in
+     phase 9's untimed window beside its workers: ``python -m
+     ceno_tpu_torch`` in subprocesses (on the card, its default):
+     ``prove examples/fibonacci.s --hints 174760 --profile test`` (the
+     2^20-step trace) and ``verify`` of that file, which must accept it with
+     the guest's exit code (wall seconds and bytes); then the setup of
+     ``ceno_tpu_torch/golden/cli_fibonacci.json`` (``--hints 100``):
+     ``prove``, ``verify``, ``aggregate`` and ``stats --active``, whose
+     proof and aggregation files must have the reference's SHA-256 and
+     length, verify the reference's exit code and cycles, and stats the
+     reference's text (the ``{"cli": ...}`` line). Beside them, the
+     row-sharded chip prove (``parallel/chip.prove_chip_sharded``): phase 4's
+     ``fibonacci_vm(174760)`` witness of its largest opcode chip (addi, 2^19
+     rows) proved by 4 spawned ranks that share the card over ``gloo``
+     (``parallel/sharded.run_ranks``); every rank's proof must be the bytes
+     of the single-device ``prove_chip`` on the card, which the verifier
+     accepts, and each rank must launch K6a and K6b (the ``{"sharded_chip":
+     ...}`` line; correctness only: four ranks on one card show no speed).
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
 last line. Without a CUDA device it exits 2 and prints no result.
@@ -170,16 +193,21 @@ import copy
 import dataclasses
 import faulthandler
 import hashlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ceno_tpu_torch import interop
 from ceno_tpu_torch.emulator import keccak, native, programs
@@ -196,7 +224,10 @@ from ceno_tpu_torch.hash import poseidon2_merkle as pm
 from ceno_tpu_torch.hash.transcript import Transcript
 from ceno_tpu_torch.host import CenoStdin, read_all_messages
 from ceno_tpu_torch.mle import ops
+from ceno_tpu_torch.parallel import chip as pchip
+from ceno_tpu_torch.parallel import sharded as psharded
 from ceno_tpu_torch.pcs import basefold as bf
+from ceno_tpu_torch.pcs import commitcache
 from ceno_tpu_torch.pcs import jagged as jg
 from ceno_tpu_torch.sumcheck import fused, terms
 from ceno_tpu_torch.sumcheck import prover as sc_prover
@@ -1265,12 +1296,9 @@ PROTOCOL_ERRORS = (scheme.ZKVMError, ChipError, TowerError, SumcheckError, bf.PC
 
 
 def content_key(mat: np.ndarray, blowup_log: int) -> str:
-    """The reference's content key of a fixed matrix, the name of its cached
-    commitment (ceno_tpu/pcs/commitcache.py:33-37)."""
-    h = hashlib.sha256()
-    h.update(np.ascontiguousarray(mat, np.uint64).tobytes())
-    h.update(repr((mat.shape, int(blowup_log))).encode())
-    return h.hexdigest()[:32]
+    """The content key of a fixed matrix, the name of its cached commitment
+    (``pcs/commitcache._key``, the reference's ceno_tpu/pcs/commitcache.py:34)."""
+    return commitcache._key(mat, bf.BasefoldParams(blowup_log=blowup_log))
 
 
 def fixed_commit_check(pk) -> None:
@@ -2303,6 +2331,253 @@ def run_aggregation(pk, proof, n: int, keep: dict | None = None) -> tuple:
     return line, report, counted, shapes, data
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the command line, the key cache, the row-sharded chip prove
+# ---------------------------------------------------------------------------
+
+CLI_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "cli_fibonacci.json")
+CLI_GUEST = "examples/fibonacci.s"
+CLI_ITERS = 174760  # --hints of the CLI's 2^20-step prove: 1,048,572 steps
+CLI_TIMEOUT = 300   # seconds a CLI command may take
+SHARDED_CHIP = "addi"  # fibonacci_vm(174760)'s largest opcode chip: 2^19 rows
+SHARDED_RANKS = 4
+SHARDED_CHALLENGES = np.array([[5, 7, 11, 13], [17, 19, 23, 29]], np.uint64)
+SHARDED_LABEL = b"chip-dryrun"
+SHARDED_TIMEOUT = 120  # seconds each collective may wait
+SHARDED_DEADLINE = 300  # seconds the ranks may take in all, their start included
+
+
+def cli_run(what: str, *args: str) -> tuple:
+    """``python -m ceno_tpu_torch <args>`` from the repo root, on the card:
+    (its standard output, wall seconds). Fails on a nonzero exit."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "ceno_tpu_torch", *args], cwd=ROOT,
+                       capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    dt = time.time() - t0
+    if r.returncode != 0:
+        fail(f"cli {what}: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    log(f"cli: {what}: {r.stdout.strip().splitlines()[-1]} ({dt:.2f}s wall)")
+    return r.stdout, dt
+
+
+def file_sha256(path: str) -> dict:
+    with open(path, "rb") as f:
+        data = f.read()
+    return {"sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data)}
+
+
+def cli_large(tmp: str) -> dict:
+    """``prove`` of CLI_GUEST with ``--hints CLI_ITERS --profile test`` (the
+    2^20-step trace at phase 5's widths), then ``verify`` of that file, which
+    must accept it with the guest's exit code."""
+    path = os.path.join(tmp, "fib_2^20.bin")
+    _, prove_s = cli_run("prove 2^20", "prove", CLI_GUEST, "--hints", str(CLI_ITERS),
+                         "--profile", "test", "-o", path)
+    out, verify_s = cli_run("verify 2^20", "verify", CLI_GUEST, path, "--profile", "test")
+    want = f"exit_code={programs.fib_expected(CLI_ITERS)}"
+    if not out.startswith("verify: OK") or want not in out:
+        fail(f"cli verify 2^20: {out.strip()!r}, expected OK and {want}")
+    return {"prove_wall_s": prove_s, "verify_wall_s": verify_s,
+            "proof_bytes": os.path.getsize(path)}
+
+
+def cli_golden_run(tmp: str, want: dict) -> dict:
+    """The golden setup of ``tools/torch_cli_golden.py``: ``prove``, then
+    ``verify`` and ``aggregate`` of its file; the proof's and the
+    aggregation's SHA-256 and length, and verify's exit code and cycles, must
+    be the reference's."""
+    proof, agg = os.path.join(tmp, "fib_golden.bin"), os.path.join(tmp, "agg_golden.bin")
+    seconds = {}
+    _, seconds["prove"] = cli_run("prove (golden)", "prove", want["guest"], "--hints",
+                                  want["hints"], "--profile", want["profile"], "-o", proof)
+    if file_sha256(proof) != want["prove"]:
+        fail(f"cli prove: {file_sha256(proof)}, the reference's {want['prove']}")
+    out, seconds["verify"] = cli_run("verify (golden)", "verify", want["guest"], proof,
+                                     "--profile", want["profile"])
+    if not out.startswith("verify: OK") or not out.strip().endswith(want["verify"]):
+        fail(f"cli verify: {out.strip()!r}, the reference's ends {want['verify']!r}")
+    _, seconds["aggregate"] = cli_run("aggregate (golden)", "aggregate", want["guest"], proof,
+                                      "--profile", want["profile"], "-o", agg)
+    if file_sha256(agg) != want["aggregate"]:
+        fail(f"cli aggregate: {file_sha256(agg)}, the reference's {want['aggregate']}")
+    return {"wall_s": seconds, "prove": want["prove"], "aggregate": want["aggregate"]}
+
+
+def cli_stats(want: dict) -> dict:
+    """``stats <guest> --hints .. --active`` must print the reference's text."""
+    out, dt = cli_run("stats (golden)", "stats", want["guest"], "--hints", want["hints"],
+                      "--active")
+    if out != want["stats"]:
+        fail(f"cli stats: the table differs from the reference's:\n{out}")
+    return {"wall_s": dt, "lines": len(out.splitlines())}
+
+
+def key_cache_check(pk, first_keygen_s: float) -> dict:
+    """Phase 5's keygen again (``first_keygen_s`` is phase 5's, the first in
+    the process), once without the cache and once with
+    CENO_TPU_TORCH_COMMIT_CACHE naming a temporary directory that holds a
+    copy of GOLDEN: it must hit that file (write nothing) and give phase 5's
+    fixed commitment (cols, codeword, leaves, levels, root). Then the fixed
+    matrix's commit alone, from the cache and fresh. Returns the
+    ``key_cache`` line."""
+    (fresh,) = pk.fixed_committed.values()
+    n_pre = len(pk.metas) - len(pk.tables)
+    (mat,) = scheme.fixed_matrices(pk.tables, n_pre, pk.params)[1].values()
+    out = {"keygen_first_s": first_keygen_s}
+    t0 = time.time()
+    scheme.keygen(pk.program_words, pk.cfg, pk.params, pk.data_image, device=DEVICE)
+    sync()
+    out["keygen_fresh_s"] = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy2(GOLDEN, tmp)
+        before = {f: os.stat(os.path.join(tmp, f)).st_mtime_ns for f in os.listdir(tmp)}
+        os.environ[commitcache.ENV] = tmp
+        try:
+            t0 = time.time()
+            key = scheme.keygen(pk.program_words, pk.cfg, pk.params, pk.data_image,
+                                device=DEVICE)
+            sync()
+            out["keygen_hit_s"] = time.time() - t0
+        finally:
+            del os.environ[commitcache.ENV]
+        t0 = time.time()
+        commitcache.commit_cached(mat, pk.params, cache_dir=tmp, device=DEVICE)
+        sync()
+        out["commit_hit_s"] = time.time() - t0
+        after = {f: os.stat(os.path.join(tmp, f)).st_mtime_ns for f in os.listdir(tmp)}
+    if after != before:
+        fail(f"key cache: keygen wrote to the cache: {sorted(after)} against {sorted(before)}")
+    t0 = time.time()
+    bf.commit(mat, pk.params, device=DEVICE)
+    sync()
+    out["commit_fresh_s"] = time.time() - t0
+    (hit,) = key.fixed_committed.values()
+    got, want = interop.committed_to_numpy(hit), interop.committed_to_numpy(fresh)
+    for k in ("cols", "codeword", "leaves"):
+        if not np.array_equal(got[k], want[k]):
+            fail(f"key cache: the loaded {k} differs from phase 5's fresh commit")
+    if len(got["levels"]) != len(want["levels"]) or any(
+            not np.array_equal(a, b) for a, b in zip(got["levels"], want["levels"])):
+        fail("key cache: the loaded tree's levels differ from phase 5's fresh commit")
+    if not np.array_equal(hit.root, fresh.root) or hit.codeword.device.type != \
+            torch.device(DEVICE).type:
+        fail("key cache: the loaded root differs, or the commitment is not on the device")
+    out["levels"] = len(got["levels"])
+    log(f"key cache: keygen hit the golden file (nothing written) in {out['keygen_hit_s']:.2f}s "
+        f"(without the cache {out['keygen_fresh_s']:.2f}s; phase 5's, the first, "
+        f"{first_keygen_s:.2f}s); root, {out['levels']} levels and "
+        f"codeword equal phase 5's; the fixed commit {out['commit_fresh_s']:.3f}s fresh, "
+        f"{out['commit_hit_s']:.3f}s from the cache")
+    return out
+
+
+def sharded_chip_inputs(path: str) -> tuple:
+    """fibonacci_vm(GKR_ITERS)'s SHARDED_CHIP witness (emulated and assigned
+    as in phase 4), written to ``path`` for the ranks; returns (compiled,
+    wit, fixed, structural, pv, num_instances)."""
+    vm, assigned, _ = emulate_and_assign(GKR_ITERS)
+    (a,) = [a for a in assigned if a.name == SHARDED_CHIP]
+    pv = public_values(vm)
+    np.savez(path, name=a.name, wit=a.wit, pv=pv, num_instances=a.num_instances)
+    return (a.compiled, a.wit, *chip_side_columns(a.compiled, a.wit.shape[1], pv), pv,
+            a.num_instances)
+
+
+def chip_side_columns(compiled, n: int, pv: np.ndarray) -> tuple:
+    """(fixed, structural) canonical columns of an opcode chip of ``n`` rows,
+    as ``scheme.prove`` gives them."""
+    if compiled.n_fixed:
+        fail(f"{compiled.name}: an opcode chip with fixed columns")
+    structural = (np.stack([gkr_chip.structural_table(s, n, pv) for s in compiled.structural])
+                  if compiled.structural else np.zeros((0, n), np.uint64))
+    return np.zeros((0, n), np.uint64), structural
+
+
+def sharded_chip_job(rank: int, path: str, device: str) -> dict:
+    """One rank of the row-sharded chip prove: the chip's witness from
+    ``path`` (:func:`sharded_chip_inputs`), ``prove_chip_sharded`` on
+    ``device`` after a barrier, the launch counts reset just before and read
+    just after. Returns the proof, the opening, the seconds and launches."""
+    with np.load(path) as z:
+        name, wit, pv, k = str(z["name"]), z["wit"], z["pv"], int(z["num_instances"])
+    compiled = next(c.compiled for c in build_opcode_chips() if c.name == name)
+    fixed, structural = chip_side_columns(compiled, wit.shape[1], pv)
+    mesh = psharded.make_mesh(device=device)
+    dist.barrier()
+    reset_launches()
+    t0 = time.time()
+    proof, opening = pchip.prove_chip_sharded(mesh, compiled, wit, fixed, structural, pv, k,
+                                              SHARDED_CHALLENGES, Transcript(SHARDED_LABEL))
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"proof": proof, "opening": opening, "seconds": time.time() - t0,
+            "launches": launches()}
+
+
+def chip_proof_bytes(proof, opening) -> bytes:
+    """A chip's proof as the serializer writes it, then its opening's point
+    and evals."""
+    buf = io.BytesIO()
+    serialize._encode(buf, proof, 0)
+    for a in (opening.point, opening.wit_evals, opening.fixed_evals):
+        buf.write(np.ascontiguousarray(a, np.uint64).tobytes())
+    return buf.getvalue()
+
+
+def sharded_chip_check(tmp: str) -> dict:
+    """SHARDED_RANKS spawned ranks, sharing the card over ``gloo``, prove the
+    chip with ``prove_chip_sharded``; every rank's bytes must equal the
+    single-device ``prove_chip``'s on the card, which the verifier accepts,
+    and each rank must have launched K6a and K6b. Returns the
+    ``sharded_chip`` line."""
+    path = os.path.join(tmp, "sharded_chip.npz")
+    compiled, wit, fixed, structural, pv, k = sharded_chip_inputs(path)
+    t0 = time.time()
+    proof, opening = gkr_chip.prove_chip(compiled, wit, fixed, structural, pv, k,
+                                         SHARDED_CHALLENGES, Transcript(SHARDED_LABEL),
+                                         device=DEVICE)
+    sync()
+    single_s = time.time() - t0
+    want = chip_proof_bytes(proof, opening)
+    gkr_chip.verify_chip(compiled, proof, pv, SHARDED_CHALLENGES, Transcript(SHARDED_LABEL))
+    t0 = time.time()
+    ranks = psharded.run_ranks(sharded_chip_job, (path, DEVICE), world_size=SHARDED_RANKS,
+                               timeout=SHARDED_TIMEOUT, deadline=SHARDED_DEADLINE)
+    ranks_s = time.time() - t0
+    for r, res in enumerate(ranks):
+        if chip_proof_bytes(res["proof"], res["opening"]) != want:
+            fail(f"sharded chip: rank {r}'s proof differs from the single-device prove_chip's")
+        if torch.device(DEVICE).type == "cuda" and (res["launches"]["round_evals"] <= 0
+                                                    or res["launches"]["fold"] <= 0):
+            fail(f"sharded chip: rank {r} launched {res['launches']}, not K6a and K6b")
+    line = {"chip": SHARDED_CHIP, "rows": int(k), "height": int(wit.shape[1]),
+            "ranks": SHARDED_RANKS, "backend": "gloo", "device": DEVICE,
+            "proof_bytes": len(want), "single_device_prove_s": single_s,
+            "rank_prove_s": [res["seconds"] for res in ranks], "ranks_wall_s": ranks_s,
+            "rank_launches": [res["launches"] for res in ranks]}
+    log(f"sharded chip: {SHARDED_CHIP} ({k} rows of {wit.shape[1]}) on {SHARDED_RANKS} gloo ranks: "
+        f"every rank's {len(want)} bytes equal the single-device proof ({single_s:.2f}s); rank "
+        f"proves {[round(s, 2) for s in line['rank_prove_s']]} s, {ranks_s:.2f}s with the start")
+    return line
+
+
+def run_phase10_untimed(tmp: str) -> tuple:
+    """Phase 10's CLI commands (two threads of subprocesses: the 2^20 prove
+    and verify, then stats; the golden prove, verify and aggregate) beside
+    the row-sharded chip prove, all in the untimed window. Returns the
+    ``cli`` and ``sharded_chip`` lines."""
+    with open(CLI_GOLDEN) as f:
+        want = json.load(f)
+    with ThreadPoolExecutor(2) as ex:
+        large = ex.submit(lambda: (cli_large(tmp), cli_stats(want)))
+        golden = ex.submit(cli_golden_run, tmp, want)
+        sharded_line = sharded_chip_check(tmp)
+        large_line, stats_line = large.result()
+        cli_line = {"guest": CLI_GUEST, "large": {"hints": CLI_ITERS, **large_line},
+                    "golden": {**golden.result(), "stats": stats_line}}
+    return cli_line, sharded_line
+
+
 def main() -> int:
     pools = []
     try:
@@ -2438,15 +2713,24 @@ def _main(pools: list) -> int:
         shape_rows += real_k6a_rows(kept, ptxas)
         del kept, proof
         torch.cuda.empty_cache()
+
+    with phase("10 key cache"):
+        cache_line = key_cache_check(pk, e2e_line["seconds"]["keygen"])
+    torch.cuda.empty_cache()
+
+    with phase("9-10 untimed: golden gates, CLI, row-sharded chip"), \
+            tempfile.TemporaryDirectory() as tmp:
         # nothing is timed from here on: the golden entries and gates and the
         # checks of the parsed and the tampered proof run in workers beside
-        # each other, longest first
+        # each other, longest first; beside them phase 10's CLI commands in
+        # subprocesses and its row-sharded ranks
         pool = agg_pool(AGG_WORKERS)
         pools.append(pool)
         t = time.time()
         pending = agg_golden_check(pool)
         pending.update(golden_gates(pool))
         pending.update(agg_verifications(pool, pk.vk, agg_data))
+        cli_line, sharded_line = run_phase10_untimed(tmp)
         checks = agg_results(pending)
         shard_line["golden"], shard_line["seconds"]["golden_check"] = \
             checks.pop("shards golden")
@@ -2468,6 +2752,9 @@ def _main(pools: list) -> int:
             if c <= 0:
                 fail(f"aggregation: kernel {name} was not launched in the aggregation's prove")
         print(json.dumps({"aggregation": agg_line}), flush=True)
+        print(json.dumps({"key_cache": cache_line}), flush=True)
+        print(json.dumps({"cli": cli_line}), flush=True)
+        print(json.dumps({"sharded_chip": sharded_line}), flush=True)
         print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
