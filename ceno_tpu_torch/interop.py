@@ -35,6 +35,14 @@ compared, not carried, as the shard key is: each side rebuilds it with
 :func:`agg_key_summary` gives what two keys are compared by (its chips'
 names, compiled digests and fixed columns, the params and ``digest_elems``);
 :func:`agg_key_check` holds a port key against such a summary.
+
+The Goldilocks pipeline's objects (gl/: GlCommitted with its GlTree,
+GlQuery, GlOpening, GlSumcheckOutput, GlTowerProof, GlChipProof) go across
+as plain dicts too (``gl_*_to_dict`` / ``gl_*_from_dict``; a commitment, which
+holds device tensors in the port and numpy in the reference, as
+``gl_committed_to_numpy`` / ``gl_committed_from_numpy``). The reference has
+no Goldilocks serializer, so :func:`gl_chip_proof_digest` is what two chip
+proofs are compared by: :func:`digest` of the plain form.
 """
 
 from __future__ import annotations
@@ -43,12 +51,17 @@ import dataclasses
 import hashlib
 
 import numpy as np
+import torch
 
 from . import DEFAULT_DEVICE
 from .fields import babybear as bb
 from .gkr.chip import ChipOpening, ClassMainProof, chip_digest
 from .gkr.eccquark import EccQuarkProof
 from .gkr.tower import TowerProof
+from .fields import goldilocks as gld
+from .gl.pcs import GlCommitted, GlOpening, GlQuery, GlTree
+from .gl.sumcheck import GlSumcheckOutput
+from .gl.zkvm import GlChipProof, GlTowerProof
 from .pcs.basefold import BasefoldParams, Committed, OpeningProof, QueryProof
 from .pcs.jagged import JaggedClaim, JaggedLayout, JaggedOpening, SliceRef
 from .pcs.merkle import MerkleTree
@@ -301,3 +314,89 @@ def agg_key_check(key: AggKey, summary: dict) -> None:
             raise ValueError(f"aggregation key: fixed columns of {name} differ")
     if not np.array_equal(mine["digest_elems"], _u64(summary["digest_elems"])):
         raise ValueError("aggregation key: digest_elems differ")
+
+
+# -- Goldilocks (gl/) ------------------------------------------------------------
+
+def _gl_host(x) -> np.ndarray:
+    """A port tensor or a reference array -> a new canonical numpy uint64
+    array (a copy, so a tampered copy of a proof leaves the proof as it was)."""
+    return gld.to_host(x) if isinstance(x, torch.Tensor) else np.array(x, np.uint64)
+
+
+def gl_committed_to_numpy(c) -> dict:
+    return {"cols": _gl_host(c.cols), "codeword": _gl_host(c.codeword),
+            "levels": [_gl_host(lv) for lv in c.tree.levels], "n_vars": int(c.n_vars)}
+
+
+def gl_committed_from_numpy(d: dict, device=None) -> GlCommitted:
+    device = device or DEFAULT_DEVICE
+    return GlCommitted(gld.to_device(np.asarray(d["cols"]), device),
+                       gld.to_device(np.asarray(d["codeword"]), device),
+                       GlTree([gld.to_device(np.asarray(lv), device) for lv in d["levels"]]),
+                       int(d["n_vars"]))
+
+
+def gl_query_to_dict(q) -> dict:
+    return {"index": int(q.index), "base_col_vals": _gl_host(q.base_col_vals),
+            "base_paths": _gl_host(q.base_paths),
+            "level_vals": [_gl_host(v) for v in q.level_vals],
+            "level_paths": [_gl_host(v) for v in q.level_paths]}
+
+
+def gl_query_from_dict(d: dict) -> GlQuery:
+    return GlQuery(int(d["index"]), _gl_host(d["base_col_vals"]), _gl_host(d["base_paths"]),
+                   [_gl_host(v) for v in d["level_vals"]],
+                   [_gl_host(v) for v in d["level_paths"]])
+
+
+def gl_opening_to_dict(o) -> dict:
+    return {"round_msgs": _gl_host(o.round_msgs),
+            "fold_roots": [_gl_host(r) for r in o.fold_roots],
+            "tail": _gl_host(o.tail), "queries": [gl_query_to_dict(q) for q in o.queries],
+            "pow_nonce": int(o.pow_nonce)}
+
+
+def gl_opening_from_dict(d: dict) -> GlOpening:
+    return GlOpening(_gl_host(d["round_msgs"]), [_gl_host(r) for r in d["fold_roots"]],
+                     _gl_host(d["tail"]), [gl_query_from_dict(q) for q in d["queries"]],
+                     int(d["pow_nonce"]))
+
+
+def gl_sumcheck_output_to_dict(o) -> dict:
+    return {k: _gl_host(getattr(o, k)) for k in ("round_msgs", "point", "final_base", "final_ext")}
+
+
+def gl_sumcheck_output_from_dict(d: dict) -> GlSumcheckOutput:
+    return GlSumcheckOutput(*(_gl_host(d[k]) for k in ("round_msgs", "point", "final_base",
+                                                    "final_ext")))
+
+
+def gl_tower_proof_to_dict(t) -> dict:
+    return {"prod_out": _gl_host(t.prod_out), "logup_out": _gl_host(t.logup_out),
+            "round_msgs": [_gl_host(m) for m in t.round_msgs],
+            "level_evals": [_gl_host(e) for e in t.level_evals]}
+
+
+def gl_tower_proof_from_dict(d: dict) -> GlTowerProof:
+    return GlTowerProof(_gl_host(d["prod_out"]), _gl_host(d["logup_out"]),
+                        [_gl_host(m) for m in d["round_msgs"]],
+                        [_gl_host(e) for e in d["level_evals"]])
+
+
+def gl_chip_proof_to_dict(p) -> dict:
+    return {"num_instances": int(p.num_instances), "n_vars": int(p.n_vars),
+            "root": _gl_host(p.root), "tower": gl_tower_proof_to_dict(p.tower),
+            "main_msgs": _gl_host(p.main_msgs), "wit_evals": _gl_host(p.wit_evals),
+            "opening": gl_opening_to_dict(p.opening)}
+
+
+def gl_chip_proof_from_dict(d: dict) -> GlChipProof:
+    return GlChipProof(int(d["num_instances"]), int(d["n_vars"]), _gl_host(d["root"]),
+                       gl_tower_proof_from_dict(d["tower"]), _gl_host(d["main_msgs"]),
+                       _gl_host(d["wit_evals"]), gl_opening_from_dict(d["opening"]))
+
+
+def gl_chip_proof_digest(p) -> str:
+    """The canonical digest of a GlChipProof of either package."""
+    return digest(gl_chip_proof_to_dict(p))

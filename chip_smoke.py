@@ -6,7 +6,9 @@
 Builds the CUDA kernels from ``ceno_tpu_torch/csrc`` and checks the port at
 the shapes of the 2^20-step fibonacci proof, in phases:
 
-  0. setup: the card's name and power limit, a 600 s watchdog, the build;
+  0. setup: the card's name and power limit, a 600 s watchdog, the build
+     (one nvcc per source, all at once: ``poseidon2_merkle.cu``,
+     ``sumcheck.cu``, ``gl_commit.cu``);
   1. golden Merkle check: K1 then K2 on the committed fixed-column codeword in
      ``.commit_cache/`` must reproduce its leaves, all 19 levels and the root,
      through K2's tree entry point ``merkle_levels`` and once more through the
@@ -37,7 +39,15 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      8, the 2-row class of 6,299 terms; phase 9 runs them), K1 and K2 also
      at the aggregation's commit (415, 2^18);
      with ptxas's registers, stack frame and spills for each, and for K6a
-     the launch plan its wrapper chose (``terms.round_evals_plan``);
+     the launch plan its wrapper chose (``terms.round_evals_plan``). The
+     Goldilocks commit kernels likewise (``gl_kernels_vs_plain``), at phase
+     11's shapes: K14a on a seeded (26, 2^18) matrix at blowup 8, K14b on
+     that codeword (26, 2^21) and on a (2, 2^20) first fold tree's leaves,
+     K14c over all 21 levels of the (4, 2^21) leaves, every tree from 2^1 to
+     2^11 leaves, and all three on edge words at (26, 2^12): all 0, all
+     p - 1, 2^32 - 1, 2^32 and alternating 0 / p - 1; their bounds count the
+     IMAD instructions of one GL product in the SASS (cuobjdump of
+     ``gl_mul_probe_kernel``);
   3. the PCS slice end to end with the default BasefoldParams: commit, open
      and verify the (61, 2^19) witness stack and the (13, 2^16) fixed stack,
      each with one random ext4 point per height class and the true MLE value
@@ -180,7 +190,25 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      (``parallel/sharded.run_ranks``); every rank's proof must be the bytes
      of the single-device ``prove_chip`` on the card, which the verifier
      accepts, and each rank must launch K6a and K6b (the ``{"sharded_chip":
-     ...}`` line; correctness only: four ranks on one card show no speed).
+     ...}`` line; correctness only: four ranks on one card show no speed);
+ 11. Goldilocks (``run_gl``): the add chip of phase 5's trace (174,760 rows,
+     a (26, 2^18) witness, its ``rd_idinv`` recomputed as the GL inverse)
+     through the port's ``assign_opcode_chips``, proved over GoldilocksExt2
+     with ``gl/zkvm.prove_chip_gl`` at ``GlParams()`` on the card, with spans,
+     the device audit (every commit, record, tower layer and sumcheck bank on
+     the card, made on the main thread) and K14's launch counts (reset just
+     before, read just after, each at least one); ``verify_chip_gl`` on the
+     host must accept it and reject the proof with a changed witness
+     evaluation and with a changed opened row, and the proof of the add chip
+     with its ``rd_iszero`` cell changed (tests/test_gl_pipeline.py's
+     tamper). Nothing runs beside it. In phase 9's untimed window a worker
+     runs its golden gate (``gl_golden_check``): the port's GL commit roots
+     of seeded matrices, a seeded GL sumcheck's digest and the GlChipProof
+     digest of ``fibonacci_vm(40)``'s add chip at the test's params must
+     equal the reference's (``ceno_tpu_torch/golden/gl_pipeline.json``). It
+     prints the span tree and the ``{"gl": {...}}`` line (seconds of the
+     witness, the prove, the verify and the tampered prove, spans, launches,
+     peak device memory, the golden gate).
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
 last line. Without a CUDA device it exits 2 and prints no result.
@@ -214,12 +242,20 @@ from ceno_tpu_torch.emulator import keccak, native, programs
 from ceno_tpu_torch.emulator.rv32im import assemble
 from ceno_tpu_torch.emulator.state import CYCLE_START, Platform, VMState, make_program
 from ceno_tpu_torch.fields import babybear as bb
+from ceno_tpu_torch.fields import gl_host
+from ceno_tpu_torch.fields import goldilocks as gld
+from ceno_tpu_torch.fields import goldilocks_ext2 as gx
 from ceno_tpu_torch.fields import septic
 from ceno_tpu_torch.gkr import chip as gkr_chip
 from ceno_tpu_torch.gkr import eccquark
 from ceno_tpu_torch.gkr import tower
 from ceno_tpu_torch.gkr.chip import ChipError
 from ceno_tpu_torch.gkr.tower import TowerError
+from ceno_tpu_torch.gl import device as gdev
+from ceno_tpu_torch.gl import pcs as gpcs
+from ceno_tpu_torch.gl import sumcheck as gsc
+from ceno_tpu_torch.gl import zkvm as gz
+from ceno_tpu_torch.gl.transcript import GlTranscript
 from ceno_tpu_torch.hash import poseidon2_merkle as pm
 from ceno_tpu_torch.hash.transcript import Transcript
 from ceno_tpu_torch.host import CenoStdin, read_all_messages
@@ -580,6 +616,168 @@ def edge_words(shape) -> None:
             fail(f"K2 differs from its plain version on {name} words, (8, 2^{shape[1]}) tree")
         log(f"edge words {name}: K1 at ({c}, 2^{shape[1]}) and K2 over (8, 2^{shape[1]}) "
             "equal their plain versions")
+
+
+# -- phase 2, continued: the Goldilocks commit kernels K14a, K14b, K14c ----------
+
+GL_P = gld.P
+GL_ENCODE_SHAPE = (26, 18, 3)  # (C, log2 N, blowup_log): phase 11's witness commit
+GL_LEAF_SHAPES = [(26, 21), (2, 20)]  # its codeword's leaves; the first fold tree's
+GL_TREE_LOG = 21               # the codeword's tree
+GL_EDGE_SHAPE = (26, 12)       # (C, log2 M) of the edge-word inputs
+GL_PRODUCTS_PER_PERM = 520     # 8 x 8 S-boxes x 4 + 22 x (4 + 8 diagonal)
+
+
+def gl_imads_per_product() -> dict:
+    """The IMAD instructions of one GL product: cuobjdump's SASS of
+    ``gl_mul_probe_kernel`` (one product a thread, never launched), with the
+    IMAD.MOV moves counted apart."""
+    lib = cuda_build._target("gl_commit")[1]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", "-fun", "gl_mul_probe_kernel", lib],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed on {lib}: {out.stderr.strip()[:400]}")
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(IMAD[.\w]*)", out.stdout)
+    moves = sum(op.startswith("IMAD.MOV") for op in ops)
+    if len(ops) - moves <= 0:
+        fail(f"no IMAD in the SASS of gl_mul_probe_kernel:\n{out.stdout[:2000]}")
+    return {"imad": len(ops) - moves, "imad_mov": moves,
+            "kinds": sorted(set(op for op in ops if not op.startswith("IMAD.MOV")))}
+
+
+def gl_random(rng, shape) -> torch.Tensor:
+    return gld.to_device(rng.integers(0, GL_P, size=shape, dtype=np.uint64), DEVICE)
+
+
+def gl_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest |got - want| over canonical words (0 when bitwise equal)."""
+    if got.shape != want.shape:
+        fail(f"K14: shape {tuple(got.shape)} against the plain version's {tuple(want.shape)}")
+    if torch.equal(got, want):
+        return 0
+    a, b = gld.to_host(got), gld.to_host(want)
+    return int(np.where(a > b, a - b, b - a).max())
+
+
+def gl_levels_err(got, want) -> int:
+    if len(got) != len(want):
+        fail(f"K14c gave {len(got)} levels, the plain version {len(want)}")
+    return max((gl_err(a, b) for a, b in zip(got, want)), default=0)
+
+
+def gl_levels_plain_batched(trees: list) -> list:
+    """``gdev.merkle_levels_plain`` of each (4, m) leaf tensor in ``trees``,
+    one plain level compression per depth over every tree still that deep
+    (the plain permutation's cost is its operation count, not its width)."""
+    out = [[] for _ in trees]
+    cur = list(trees)
+    while any(c.shape[1] > 1 for c in cur):
+        live = [i for i, c in enumerate(cur) if c.shape[1] > 1]
+        parents = gdev.compress_level_plain(torch.cat([cur[i] for i in live], 1))
+        for i, part in zip(live, parents.split([cur[i].shape[1] // 2 for i in live], 1)):
+            cur[i] = part.contiguous()
+            out[i].append(cur[i])
+    return out
+
+
+def gl_edge_words(c: int, m: int) -> list:
+    """(name, (c, m) words on DEVICE): all 0, all p - 1, all 2^32 - 1, all
+    2^32, alternating 0 / p - 1."""
+    alternating = torch.arange(c * m, device=DEVICE).reshape(c, m) % 2 * gld.const(GL_P - 1)
+    return [(name, gld.full((c, m), v, DEVICE)) for name, v in
+            (("all 0", 0), ("all p-1", GL_P - 1), ("all 2^32-1", (1 << 32) - 1),
+             ("all 2^32", 1 << 32))] + [("alternating 0/p-1", alternating)]
+
+
+def gl_kernels_vs_plain(rng, ptxas: dict) -> tuple:
+    """K14a, K14b and K14c against their plain versions, bitwise, at phase
+    11's shapes, every tree from 2^1 to 2^11 leaves and the edge words, with
+    both times and the bound (the multiplies of a GL product as the SASS
+    shows them). Returns (the ``kernels`` entries, one row per shape)."""
+    imads = gl_imads_per_product()
+    log(f"K14: one GL product is {imads['imad']} IMAD instructions in the SASS "
+        f"({imads['kinds']}; {imads['imad_mov']} IMAD.MOV not counted)")
+    rows, first = [], {}
+
+    def row(name, shape, err, ms, plain_ms, products, nbytes, launches_per_call, kernels):
+        b_ms, b_by = bound_of(products * imads["imad"], nbytes)
+        rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, launches_per_call=launches_per_call,
+                         gl_products=products, imad_per_product=imads["imad"],
+                         ptxas={k: ptxas.get(k) for k in kernels}))
+        first.setdefault(name, rows[-1])
+        log(f"{name} {shape}: max_abs_err {err}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {launches_per_call} launches")
+        if err:
+            fail(f"{name} differs from its plain version at {shape}")
+
+    c, log_n, blowup = GL_ENCODE_SHAPE
+    n, log_m = 1 << log_n, log_n + blowup
+    m = 1 << log_m
+    evals = gl_random(rng, (c, n))
+    cw = gdev.encode(evals, blowup)
+    ms = cuda_ms(lambda: gdev.encode(evals, blowup), reps=5)
+    want, plain_ms = wall_ms(lambda: gdev.encode_plain(evals, blowup))
+    row("gl_encode", f"({c}, 2^{log_n}) at blowup 2^{blowup}", gl_err(cw, want), ms, plain_ms,
+        c * log_m * (m // 2), 8 * c * (n + m), gdev.encode_launches(log_n, log_m),
+        ["gl_gather_kernel", "gl_mobius_kernel", "gl_spread_kernel", "gl_dit_kernel",
+         "gl_twiddles_kernel"])
+    del evals, want
+    torch.cuda.empty_cache()
+    leaves = None
+    for c, log_m in GL_LEAF_SHAPES:
+        m = 1 << log_m
+        cols = cw if cw.shape == (c, m) else gl_random(rng, (c, m))
+        got = gdev.leaf_sponge(cols)
+        ms = cuda_ms(lambda: gdev.leaf_sponge(cols), reps=5)
+        want, plain_ms = wall_ms(lambda: gdev.leaf_sponge_plain(cols))
+        row("gl_leaf_sponge", f"({c}, 2^{log_m})", gl_err(got, want), ms, plain_ms,
+            GL_PRODUCTS_PER_PERM * -(-c // 4) * m, 8 * (c + 4) * m, 1, ["gl_leaf_sponge_kernel"])
+        if leaves is None:
+            leaves = got
+        del cols, want
+    del cw
+    torch.cuda.empty_cache()
+    m = 1 << GL_TREE_LOG
+    if leaves.shape != (4, m):
+        fail(f"K14c's leaves are {tuple(leaves.shape)}, not (4, 2^{GL_TREE_LOG})")
+    levels = gdev.merkle_levels(leaves)
+    ms = cuda_ms(lambda: gdev.merkle_levels(leaves), reps=5)
+    want, plain_ms = wall_ms(lambda: gdev.merkle_levels_plain(leaves))
+    row("gl_merkle_levels", f"all {GL_TREE_LOG} levels of (4, 2^{GL_TREE_LOG})",
+        gl_levels_err(levels, want), ms, plain_ms, GL_PRODUCTS_PER_PERM * (m - 1),
+        8 * 4 * (2 * m - 1), gdev.merkle_launches(m),
+        ["gl_merkle_level_kernel", "gl_merkle_top_kernel"])
+    del leaves, levels, want
+    smalls = [gl_random(rng, (4, 1 << log_t)) for log_t in SMALL_TREES]
+    for log_t, small, want in zip(SMALL_TREES, smalls, gl_levels_plain_batched(smalls)):
+        if gl_levels_err(gdev.merkle_levels(small), want):
+            fail(f"K14c differs from its plain version on the 2^{log_t} tree")
+    log(f"K14c over every tree from 2^{SMALL_TREES[0]} to 2^{SMALL_TREES[-1]} leaves equals "
+        "the plain version")
+    c, log_e = GL_EDGE_SHAPE
+    edges = gl_edge_words(c, 1 << log_e)
+    sponges = gdev.leaf_sponge_plain(torch.cat([w for _, w in edges], 1)).chunk(len(edges), 1)
+    trees = gl_levels_plain_batched([w[:4].contiguous() for _, w in edges])
+    for (name, words), sponge, tree in zip(edges, sponges, trees):
+        if gl_err(gdev.encode(words, 3), gdev.encode_plain(words, 3)):
+            fail(f"K14a differs from its plain version on {name} words at ({c}, 2^{log_e})")
+        if gl_err(gdev.leaf_sponge(words), sponge.contiguous()):
+            fail(f"K14b differs from its plain version on {name} words at ({c}, 2^{log_e})")
+        if gl_levels_err(gdev.merkle_levels(words[:4].contiguous()), tree):
+            fail(f"K14c differs from its plain version on {name} words, (4, 2^{log_e}) tree")
+        log(f"edge words {name}: K14a, K14b at ({c}, 2^{log_e}) and K14c over (4, 2^{log_e}) "
+            "equal their plain versions")
+    kernels = [
+        dict(name=name, route="cuda", source="ceno_tpu_torch/csrc/gl_commit.cu",
+             replaces=f"ceno_tpu/gl/device.py:{line}",
+             **{k: first[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+             library_ms=None)
+        for name, line in (("gl_encode", 54), ("gl_leaf_sponge", 162), ("gl_merkle_levels", 162))
+    ]
+    return kernels, rows
 
 
 # -- phase 2, continued: the sumcheck kernels K6a, K6b and K5/K7 ------------------
@@ -2064,7 +2262,7 @@ def run_keccak_loop(n: int, cfg, params, keep: dict | None = None) -> tuple:
 
 AGG_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "aggregation_fibonacci.json")
 AGG_GOLDEN_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
-AGG_WORKERS = 6  # phase 9's untimed jobs: 4 golden entries, 2 golden gates, 2 checks
+AGG_WORKERS = 6  # the untimed jobs: 4 golden entries, 3 golden gates, 2 checks
 AGG_ERRORS = PROTOCOL_ERRORS + (aggregate.AggError, eccquark.EccError,
                                 serialize.ProofFormatError)
 
@@ -2208,12 +2406,13 @@ def _agg_job(fn, *args):
 
 
 def golden_gates(pool) -> dict:
-    """Phases 7 and 6's golden gates (:func:`precompile_golden_check`,
-    :func:`shard_golden_check`), each in a worker of ``pool``: pending
-    (result, seconds) for :func:`agg_results`."""
+    """Phases 7, 6 and 11's golden gates (:func:`precompile_golden_check`,
+    :func:`shard_golden_check`, :func:`gl_golden_check`), each in a worker of
+    ``pool``: pending (result, seconds) for :func:`agg_results`."""
     return {what: pool.apply_async(_agg_job, (_timed, fn))
             for what, fn in (("precompiles golden", precompile_golden_check),
-                             ("shards golden", shard_golden_check))}
+                             ("shards golden", shard_golden_check),
+                             ("gl golden", gl_golden_check))}
 
 
 def _timed(fn) -> tuple:
@@ -2578,6 +2777,200 @@ def run_phase10_untimed(tmp: str) -> tuple:
     return cli_line, sharded_line
 
 
+# -- phase 11: Goldilocks: the single-chip GL prover on the card ----------------------
+
+GL_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "gl_pipeline.json")
+GL_GOLDEN_ITERS = 40   # tests/test_gl_pipeline.py's fibonacci_vm(40) and its params
+GL_GOLDEN_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
+GL_GOLDEN_PARAMS = {"blowup_log": 1, "n_queries": 4, "pow_bits": 4, "stop_size": 16}
+# seeded commit matrices, (name, seed, C, log2 N, blowup_log): the shapes of
+# tests/test_gl_device.py's encode, tests/test_gl_pipeline.py's two PCS
+# round trips, and the add chip's width at the default blowup
+GL_GOLDEN_COMMITS = [("test_gl_device encode", 3, 5, 5, 2),
+                     ("test_gl_pipeline roundtrip", 7, 3, 7, 1),
+                     ("test_gl_pipeline multi-level", 7, 5, 9, 2),
+                     ("add chip width", 11, 26, 12, 3)]
+GL_GOLDEN_SUMCHECK = (13, 8)  # (seed, n_vars) of the golden sumcheck
+GL_ERRORS = (gz.GlZkvmError, gsc.GlSumcheckError, gpcs.GlPCSError)
+
+
+def gl_golden_commit_inputs() -> list:
+    """(name, (C, N) canonical numpy, blowup_log) of GL_GOLDEN_COMMITS."""
+    return [(name, np.random.default_rng(seed).integers(0, GL_P, size=(c, 1 << log_n),
+                                                        dtype=np.uint64), blowup)
+            for name, seed, c, log_n, blowup in GL_GOLDEN_COMMITS]
+
+
+def gl_golden_sumcheck_inputs() -> tuple:
+    """(base cols, ext cols, terms, n_vars) of the golden sumcheck: three base
+    and two ext columns, terms of degree 0 to 5 (the degree-0 term
+    contributes nothing, as in the reference)."""
+    seed, n_vars = GL_GOLDEN_SUMCHECK
+    rng = np.random.default_rng(seed)
+    n = 1 << n_vars
+    base = [rng.integers(0, GL_P, size=n, dtype=np.uint64) for _ in range(3)]
+    ext = [rng.integers(0, GL_P, size=(n, 2), dtype=np.uint64) for _ in range(2)]
+    shapes = [((0, 1), (0,)), ((), (1,)), ((2,), ()), ((), ()), ((0, 1, 2), (0, 1)), ((1,), (1,))]
+    terms = [(rng.integers(0, GL_P, size=2, dtype=np.uint64), b, e) for b, e in shapes]
+    return base, ext, terms, n_vars
+
+
+def gl_add_witness(assigned: list, device) -> tuple:
+    """(the add chip's AssignedChip, its GL witness on ``device``): the
+    BabyBear witgen's columns with the is-zero gadget's ``rd_idinv``
+    recomputed as the GL inverse of ``rd_id`` (tests/test_gl_pipeline.py:178)."""
+    add = next(a for a in assigned if a.name == "add")
+    wn = add.cb.wit_names
+    wit = gld.to_device(np.asarray(add.wit, np.uint64), device)
+    wit[wn.index("rd_idinv")] = gld.inv(wit[wn.index("rd_id")])
+    return add, wit
+
+
+def gl_golden_values(device) -> dict:
+    """The port's GL commit roots, sumcheck digest and chip-proof digest at
+    the golden inputs, on ``device``."""
+    roots = {name: gpcs.commit(cols, gpcs.GlParams(blowup_log=b), device=device).root.tolist()
+             for name, cols, b in gl_golden_commit_inputs()}
+    base, ext, terms, n_vars = gl_golden_sumcheck_inputs()
+    out = gsc.prove(base, ext, terms, n_vars, GlTranscript(b"gl-golden-sc"), device=device)
+    vm = programs.fibonacci_vm(GL_GOLDEN_ITERS)
+    assigned = witgen.assign_opcode_chips(native.run_trace_native(vm), build_opcode_chips())
+    add, wit = gl_add_witness(assigned, device)
+    pv = e2e.public_values_from_vm(vm, ZKVMConfig(**GL_GOLDEN_CFG))
+    params = gpcs.GlParams(**GL_GOLDEN_PARAMS)
+    proof = gz.prove_chip_gl(add.compiled, wit, pv, add.num_instances, params, device=device)
+    gz.verify_chip_gl(add.compiled, proof, pv, params)
+    return {"commit_roots": roots,
+            "sumcheck": interop.digest(interop.gl_sumcheck_output_to_dict(out)),
+            "chip": {"rows": add.num_instances, "n_vars": proof.n_vars,
+                     "digest": interop.gl_chip_proof_digest(proof)}}
+
+
+def gl_golden_check() -> dict:
+    """:func:`gl_golden_values` on DEVICE against the reference's, committed
+    in ``ceno_tpu_torch/golden/gl_pipeline.json``."""
+    with open(GL_GOLDEN) as f:
+        want = json.load(f)
+    got = gl_golden_values(DEVICE)
+    for key in ("commit_roots", "sumcheck", "chip"):
+        if got[key] != want[key]:
+            fail(f"GL golden: {key} {got[key]} differs from the reference's {want[key]}")
+    log(f"GL golden: {len(got['commit_roots'])} commit roots, the sumcheck digest and the "
+        f"chip proof of fibonacci_vm({GL_GOLDEN_ITERS})'s add chip equal the reference's")
+    return {"commit_roots": len(got["commit_roots"]), "sumcheck": got["sumcheck"][:16],
+            "chip_digest": got["chip"]["digest"][:16]}
+
+
+@contextlib.contextmanager
+def gl_device_audit():
+    """Record the device of every commit (evals and codeword), record, tower
+    layer and sumcheck bank that ``gz.prove_chip_gl`` makes inside the block,
+    each made on the main thread."""
+    seen = {"commits": [], "records": [], "layers": [], "banks": []}
+    originals = (gpcs.commit, gz.build_records_gl, gz._prod_layers, gz._logup_layers, gsc._bank)
+
+    def wrap(fn, key, tensors):
+        def inner(*args, **kwargs):
+            on_main_thread(f"GL {key}")
+            out = fn(*args, **kwargs)
+            seen[key] += [x.device.type for x in tensors(out)]
+            return out
+        return inner
+
+    gpcs.commit = wrap(originals[0], "commits", lambda c: [c.cols, c.codeword])
+    gz.build_records_gl = wrap(originals[1], "records",
+                               lambda out: out[0] + [m for pq in out[1] for m in pq])
+    gz._prod_layers = wrap(originals[2], "layers", lambda out: out)
+    gz._logup_layers = wrap(originals[3], "layers", lambda out: out[0] + out[1])
+    gsc._bank = wrap(originals[4], "banks", lambda out: [out])
+    try:
+        yield seen
+    finally:
+        (gpcs.commit, gz.build_records_gl, gz._prod_layers, gz._logup_layers,
+         gsc._bank) = originals
+
+
+def gl_tampered(proof) -> list:
+    """(what, proof) pairs, each with one opening value changed: a claimed
+    witness evaluation at the point, and an opened codeword row."""
+    bad_eval = copy.deepcopy(proof)
+    bad_eval.wit_evals[0, 0] = (int(bad_eval.wit_evals[0, 0]) + 1) % GL_P
+    bad_row = copy.deepcopy(proof)
+    q = bad_row.opening.queries[0]
+    q.base_col_vals[0, 0] = (int(q.base_col_vals[0, 0]) + 1) % GL_P
+    return [("witness evaluation", bad_eval), ("opened row", bad_row)]
+
+
+def gl_rejects(compiled, bad, pv, params, what: str) -> str:
+    try:
+        gz.verify_chip_gl(compiled, bad, pv, params)
+    except GL_ERRORS as e:
+        log(f"GL: a proof with a changed {what} rejected ({type(e).__name__}: {str(e)[:80]})")
+        return type(e).__name__
+    fail(f"GL: a proof with a changed {what} was accepted")
+
+
+def run_gl(trace, pv) -> tuple:
+    """Phase 11: the add chip of phase 5's trace (through the port's
+    ``assign_opcode_chips``) proved over Goldilocks with ``prove_chip_gl`` at
+    ``GlParams()`` on DEVICE, with spans, the device audit and K14's launch
+    counts (reset just before, read just after, each at least one), then
+    ``verify_chip_gl`` on the host, which must accept it and reject a proof
+    of the add chip with its ``rd_iszero`` cell changed (the reference test's
+    tamper) and the proof with a changed witness evaluation and opened row.
+    Returns (the ``gl`` line, the span report, K14's launches over the
+    prove, which the caller checks)."""
+    seconds = {}
+    t0 = time.time()
+    assigned = witgen.assign_opcode_chips(trace, build_opcode_chips())
+    add, wit = gl_add_witness(assigned, DEVICE)
+    sync()
+    seconds["witness"] = time.time() - t0
+    k, n = add.num_instances, wit.shape[1]
+    log(f"GL: add chip, {k} instances, witness {tuple(wit.shape)} on {wit.device} "
+        f"in {seconds['witness']:.2f}s")
+    params = gpcs.GlParams()
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spans.enable()
+    with gl_device_audit() as seen:
+        gdev.reset_launches()
+        t0 = time.time()
+        proof = gz.prove_chip_gl(add.compiled, wit, pv, k, params)
+        sync()
+        seconds["prove"] = time.time() - t0
+        counted = dict(gdev.LAUNCHES)
+    tree, report = spans.tree(), spans.report(min_seconds=0.01)
+    spans.disable()
+    checked = on_device(seen)
+    peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
+    log(f"GL: proved in {seconds['prove']:.2f}s; launches {counted}; on {DEVICE}: {checked}")
+    t0 = time.time()
+    gz.verify_chip_gl(add.compiled, proof, pv, params)
+    seconds["verify"] = time.time() - t0
+    log(f"GL: verified on the host in {seconds['verify']:.2f}s")
+    rejected = {what: gl_rejects(add.compiled, bad, pv, params, what)
+                for what, bad in gl_tampered(proof)}
+    bad_wit = wit.clone()
+    zc = add.cb.wit_names.index("rd_iszero")
+    bad_wit[zc, 1] = gld.add(bad_wit[zc, 1], torch.ones_like(bad_wit[zc, 1]))
+    t0 = time.time()
+    bad = gz.prove_chip_gl(add.compiled, bad_wit, pv, k, params)
+    sync()
+    seconds["prove_tampered"] = time.time() - t0
+    rejected["rd_iszero cell"] = gl_rejects(add.compiled, bad, pv, params, "rd_iszero cell")
+    line = {"chip": "add", "rows": k, "witness": list(wit.shape), "device": DEVICE,
+            "params": dataclasses.asdict(params), "seconds": seconds,
+            "spans": {name: node["total"] for name, node in tree.items()},
+            "launches": counted, "checked_on_device": checked, "max_memory_allocated": peak,
+            "proof_digest": interop.gl_chip_proof_digest(proof)[:16],
+            "tower": {"prod": int(proof.tower.prod_out.shape[0]),
+                      "logup": int(proof.tower.logup_out.shape[0]),
+                      "levels": len(proof.tower.round_msgs)},
+            "fold_trees": len(proof.opening.fold_roots), "rejected": rejected}
+    return line, report, counted
+
+
 def main() -> int:
     pools = []
     try:
@@ -2615,6 +3008,10 @@ def _main(pools: list) -> int:
         sc_kernels, sc_rows = sumcheck_kernels_vs_plain(np.random.default_rng(SEED + 2), ptxas)
         kernels += sc_kernels
         shape_rows += sc_rows
+        torch.cuda.empty_cache()
+        gl_kernels, gl_rows = gl_kernels_vs_plain(np.random.default_rng(SEED + 3), ptxas)
+        kernels += gl_kernels
+        shape_rows += gl_rows
     torch.cuda.empty_cache()
 
     with phase("3 PCS slice end to end"):
@@ -2655,7 +3052,6 @@ def _main(pools: list) -> int:
         kept = {"shard-RAM 2^9 class main": main_shape(SHARD_CLASS_MAIN)}
         shard_line, shard_report, shard_counted = run_continuations(pk, vm, trace, E2E_ITERS,
                                                                     kept)
-        del vm, trace
         shape_rows += real_k6a_rows(kept, ptxas)
         del kept
     torch.cuda.empty_cache()
@@ -2682,6 +3078,8 @@ def _main(pools: list) -> int:
             if {k: counted[k] for k in expected} != expected:
                 fail(f"launches over the {path}: {counted}, the launch plans give {expected}")
         for k in kernels:
+            if k["name"] in gdev.LAUNCHES:
+                continue  # phase 11's prove counts them
             k["launches"] = e2e_counted["prove"][0][k["name"]]
             if k["launches"] <= 0:
                 fail(f"kernel {k['name']} was not launched on the main path")
@@ -2718,7 +3116,18 @@ def _main(pools: list) -> int:
         cache_line = key_cache_check(pk, e2e_line["seconds"]["keygen"])
     torch.cuda.empty_cache()
 
-    with phase("9-10 untimed: golden gates, CLI, row-sharded chip"), \
+    with phase("11 Goldilocks"):
+        gl_line, gl_report, gl_counted = run_gl(
+            trace, e2e.public_values_from_vm(vm, ZKVMConfig(**E2E_CFG)))
+        del vm, trace
+        for k in kernels:
+            if k["name"] in gl_counted:
+                k["launches"] = gl_counted[k["name"]]
+                if k["launches"] <= 0:
+                    fail(f"GL: kernel {k['name']} was not launched in prove_chip_gl")
+    torch.cuda.empty_cache()
+
+    with phase("9-11 untimed: golden gates, CLI, row-sharded chip"), \
             tempfile.TemporaryDirectory() as tmp:
         # nothing is timed from here on: the golden entries and gates and the
         # checks of the parsed and the tampered proof run in workers beside
@@ -2734,6 +3143,7 @@ def _main(pools: list) -> int:
         checks = agg_results(pending)
         shard_line["golden"], shard_line["seconds"]["golden_check"] = \
             checks.pop("shards golden")
+        gl_line["golden"], gl_line["seconds"]["golden_check"] = checks.pop("gl golden")
         golden, golden_s = checks.pop("precompiles golden")
         golden["seconds"] = golden_s
         check_shapes_ran([main_shape(SECP_CLASS_MAIN)], golden["secp"].pop("sumcheck_shapes"),
@@ -2755,6 +3165,8 @@ def _main(pools: list) -> int:
         print(json.dumps({"key_cache": cache_line}), flush=True)
         print(json.dumps({"cli": cli_line}), flush=True)
         print(json.dumps({"sharded_chip": sharded_line}), flush=True)
+        print(gl_report, flush=True)
+        print(json.dumps({"gl": gl_line}), flush=True)
         print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,15 @@
 // A host stand-in for the CUDA runtime, so that the tests can compile a
 // kernel source of ceno_tpu_torch/csrc with a C++ compiler and run it on the
-// CPU (tests/test_torch_sumcheck_kernels.py). A launch runs its blocks one
-// after the other, each block's threads as std::threads, __syncthreads as a
-// std::barrier and __shared__ arrays as statics (one block at a time shares
-// them). The warp functions (__shfl_sync, __shfl_xor_sync, __syncwarp) hold
-// for a block of one warp, as csrc/sumcheck.cu's duplex launches: each lane
-// puts its value into a static slot, the block's barrier, each lane reads
-// its source's slot, the barrier again. So every lane must reach every
-// shuffle, as on the card. Kernel launches (kernel<<<grid, block, smem,
-// stream>>>(args)) are rewritten by the test into
+// CPU (tests/test_torch_sumcheck_kernels.py, tests/test_torch_gl_device.py).
+// A launch runs its blocks one after the other, each block's threads as
+// std::threads, __syncthreads as a std::barrier and __shared__ arrays as
+// statics (one block at a time shares them). The warp functions
+// (__shfl_sync, __shfl_xor_sync, __syncwarp) hold for a block of one warp,
+// as csrc/sumcheck.cu's duplex launches: each lane puts its value into a
+// static slot, the block's barrier, each lane reads its source's slot, the
+// barrier again. So every lane must reach every shuffle, as on the card.
+// Kernel launches (kernel<<<grid, block, smem, stream>>>(args)) are
+// rewritten by the test into
 // run_kernel(Launch(grid, block, smem, stream), kernel, args).
 #pragma once
 #include <algorithm>
@@ -42,6 +43,14 @@ inline std::barrier<>* g_barrier = nullptr;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 inline uint32_t min(uint32_t a, uint32_t b) { return std::min(a, b); }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
+  return (uint64_t)(((unsigned __int128)a * b) >> 64);
+}
+inline uint32_t __brev(uint32_t x) {
+  uint32_t r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 
 // A block of one warp: lane = threadIdx.x < 32.

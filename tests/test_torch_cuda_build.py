@@ -21,23 +21,31 @@ def csrc(tmp_path):
 
 
 def test_every_source_is_built():
-    assert cuda_build.SOURCES == ("poseidon2_merkle", "sumcheck")
+    assert cuda_build.SOURCES == ("poseidon2_merkle", "sumcheck", "gl_commit")
     for name in cuda_build.SOURCES:
         assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu"))
 
 
-@pytest.mark.parametrize("name", ["poseidon2_merkle", "sumcheck"])
-def test_includes_are_the_csrc_headers(csrc, name):
+@pytest.mark.parametrize("name, headers", [
+    ("poseidon2_merkle", ["babybear.cuh", "poseidon2.cuh"]),
+    ("sumcheck", ["babybear.cuh", "poseidon2.cuh"]),
+    ("gl_commit", ["goldilocks.cuh", "poseidon2_gl.cuh"]),
+], ids=["poseidon2_merkle", "sumcheck", "gl_commit"])
+def test_includes_are_the_csrc_headers(csrc, name, headers):
     deps = cuda_build._includes(os.path.join(csrc, f"{name}.cu"), csrc)
-    assert [os.path.basename(d) for d in deps] == ["babybear.cuh", "poseidon2.cuh"]
+    assert [os.path.basename(d) for d in deps] == headers
 
 
-@pytest.mark.parametrize("header", ["babybear.cuh", "poseidon2.cuh"])
-@pytest.mark.parametrize("name", ["poseidon2_merkle", "sumcheck"])
+@pytest.mark.parametrize("name, header", [
+    ("poseidon2_merkle", "babybear.cuh"), ("poseidon2_merkle", "poseidon2.cuh"),
+    ("sumcheck", "babybear.cuh"), ("sumcheck", "poseidon2.cuh"),
+    ("gl_commit", "goldilocks.cuh"), ("gl_commit", "poseidon2_gl.cuh"),
+])
 def test_an_edited_header_changes_the_library(csrc, name, header):
-    """An edit of either header renames either library (babybear.cuh is
-    also reached through poseidon2.cuh); the library stays in the package's
-    build directory, and the same files give the same name."""
+    """An edit of either header renames either library that includes it
+    (babybear.cuh is also reached through poseidon2.cuh, goldilocks.cuh
+    through poseidon2_gl.cuh); the library stays in the package's build
+    directory, and the same files give the same name."""
     before = cuda_build._target(name, csrc)
     assert before == cuda_build._target(name, csrc)
     assert os.path.dirname(before[1]) == cuda_build.BUILD_DIR

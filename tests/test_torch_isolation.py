@@ -31,7 +31,7 @@ def _sources():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert len(names) >= 83, names
+    assert len(names) >= 94, names
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"       # any `import jax` raises ImportError
@@ -123,3 +123,51 @@ def test_aggregation_modules_stand_alone():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "aggregation ok" in r.stdout
+
+
+GOLDILOCKS_MODULES = [
+    "ceno_tpu_torch.fields.gl_host", "ceno_tpu_torch.fields.gl2_host",
+    "ceno_tpu_torch.fields.goldilocks", "ceno_tpu_torch.fields.goldilocks_ext2",
+    "ceno_tpu_torch.gl", "ceno_tpu_torch.gl.poseidon2", "ceno_tpu_torch.gl.transcript",
+    "ceno_tpu_torch.gl.sumcheck", "ceno_tpu_torch.gl.device", "ceno_tpu_torch.gl.pcs",
+    "ceno_tpu_torch.gl.zkvm",
+]
+
+
+def test_goldilocks_modules_stand_alone():
+    """The Goldilocks slice's 11 modules are the port's own: found among its
+    modules and driven (a commit, an opening and its verification on CPU
+    tensors) with jax and ceno_tpu blocked."""
+    assert set(GOLDILOCKS_MODULES) <= set(_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceno_tpu'] = None\n"
+        "import numpy as np\n"
+        "from ceno_tpu_torch.fields import gl2_host as g2\n"
+        "from ceno_tpu_torch.gl import pcs, sumcheck\n"
+        "from ceno_tpu_torch.gl.transcript import GlTranscript\n"
+        "rng = np.random.default_rng(1)\n"
+        "cols = rng.integers(0, 2**63, size=(3, 16), dtype=np.uint64)\n"
+        "z = rng.integers(0, 2**63, size=(4, 2), dtype=np.uint64)\n"
+        "vals = []\n"
+        "for c in cols:\n"
+        "    cur = g2.from_base(c)\n"
+        "    for t in range(4):\n"
+        "        cur = sumcheck._fold_top(cur, z[t])\n"
+        "    vals.append(cur[0])\n"
+        "prm = pcs.GlParams(blowup_log=1, n_queries=3, pow_bits=2, stop_size=4)\n"
+        "com = pcs.commit(cols, prm, device='cpu')\n"
+        "tp, tv = GlTranscript(b'x'), GlTranscript(b'x')\n"
+        "op = pcs.open_batch(com, z, np.stack(vals), tp, prm)\n"
+        "pcs.verify_batch(com.root, 4, 3, z, np.stack(vals), op, tv, prm)\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "(m.split('.')[0] in ('jax', 'jaxlib', 'ceno_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('goldilocks ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "goldilocks ok" in r.stdout
