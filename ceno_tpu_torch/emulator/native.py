@@ -3,7 +3,7 @@
 Counterpart of ``ceno_tpu/emulator/native.py``, with its AOT preflight
 backend (:func:`run_preflight` over ``aotgen``'s per-program libraries, built
 into ``ceno_tpu_torch/_build/aot/``). Builds ``native/emulator.cpp`` on
-first use (``c++ -O2 -shared -fPIC``) into the git-ignored
+first use (utils/host_build.py: ``c++ -O2 -shared -fPIC -pthread``) into the git-ignored
 ``ceno_tpu_torch/_build/``, keyed by a hash of the source, runs
 the guest at native speed and reconstructs the same VMState + StepRecord
 structures (or TraceView columns) the Python interpreter produces — witgen is
@@ -18,16 +18,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import subprocess
 
 import numpy as np
 
+from ..utils import host_build
 from .rv32im import DecodedInsn, KINDS
 from .state import VMState, StepRecord, Platform
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native", "emulator.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-_FLAGS = ("-O2", "-shared", "-fPIC")
+BUILD_DIR = host_build.BUILD_DIR
 _LIB = None
 
 
@@ -51,32 +50,13 @@ class _StepRow(ctypes.Structure):
 def _target() -> tuple:
     """(source, library) paths; the library is keyed by a hash of the source
     and the flags, so an edited source is rebuilt."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()
-    return _SRC, os.path.join(BUILD_DIR, f"libceno_emu-{digest[:16]}.so")
+    return _SRC, host_build.target(_SRC, "libceno_emu", BUILD_DIR)
 
 
 def _build() -> str:
     """Build the core unless it is built; returns the library's path. Raises
     RuntimeError when no C++ compiler can build it."""
-    src, out = _target()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    errors = []
-    for cc in ("c++", "g++", "cc"):
-        try:
-            subprocess.run([cc, *_FLAGS, src, "-o", tmp], check=True, capture_output=True, text=True)
-        except FileNotFoundError:
-            errors.append(f"{cc}: not found")
-            continue
-        except subprocess.CalledProcessError as e:
-            errors.append(f"{cc}: {e.stderr}")
-            continue
-        os.replace(tmp, out)
-        return out
-    raise RuntimeError("no C++ toolchain built the native emulator: " + "; ".join(errors))
+    return host_build.build(_SRC, "libceno_emu", BUILD_DIR)
 
 
 def _lib():

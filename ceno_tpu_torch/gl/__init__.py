@@ -2,11 +2,14 @@
 
 Counterpart of ``ceno_tpu/gl/``: the Poseidon2-GL transcript, the batched
 sumcheck and the Basefold PCS over GoldilocksExt2, and the single-chip
-prover and verifier (gl/zkvm.py). The commit runs the hand-written kernels
-K14a-c (gl/device.py over csrc/gl_commit.cu); the rounds, towers and records
-run in plain torch on the tensors' device; the verifiers are host numpy.
-The multi-chip GL scheme and its continuations (the reference's
-gl/{scheme,gadget,shard_chips,eccquark,shard}.py) are not ported yet.
+prover and verifier (gl/zkvm.py), the multi-chip zkVM scheme over the full
+chip set (gl/scheme.py: ``keygen_gl``, ``prove_gl``, ``verify_gl``) and its
+continuations on the quintic multiset-hash curve (gl/shard.py over
+gl/shard_chips.py, gl/gadget.py, gl/eccquark.py and fields/gl5_host.py).
+The commit runs the hand-written kernels K14a-c (gl/device.py over
+csrc/gl_commit.cu); the rounds, towers, records and the EC-sum quark run in
+plain torch on the tensors' device; the witgen, the transcript and the
+verifiers are host numpy.
 """
 
 from . import poseidon2  # noqa: F401

@@ -13,21 +13,28 @@ They are protocol constants; ``csrc/poseidon2_gl.cuh`` carries the same
 words, checked against these lists by tests/test_torch_gl_device.py.
 
 Three backends with one parameter set:
-  * host numpy (:func:`permute_host` on an (8, N) state: the PoW grind);
-  * host Python ints (:func:`permute_host` on one (8,) state: the
-    transcript and the verifier, which permute one state thousands of times;
-    tests/test_torch_gl_fields.py holds it to the vector path);
+  * host numpy (:func:`permute_host` on an (8, N) state: the shard chips'
+    hash-to-curve);
+  * host C++ (``native/poseidon2_gl.cpp``, built on first use by
+    utils/host_build.py and given these tables): :func:`permute_host` on one
+    (8,) state (the transcript and the verifiers, which permute one state
+    thousands of times; tests/test_torch_gl_fields.py holds it to the vector
+    path) and the PoW grind's scan (:func:`grind`);
   * torch (:func:`permute` on an (8, B) int64 tensor): the plain version the
     CUDA kernels of ``csrc/gl_commit.cu`` are held against.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+
 import numpy as np
 import torch
 
 from ..fields import gl_host as gl
 from ..fields import goldilocks as gld
+from ..utils import host_build
 
 WIDTH = 8
 RATE = 4
@@ -73,8 +80,6 @@ INTERNAL_DIAG = [
 _RC_EXTERNAL = [np.array(row, np.uint64) for row in RC_EXTERNAL]
 _RC_INTERNAL = np.array(RC_INTERNAL, np.uint64)
 _DIAG = np.array(INTERNAL_DIAG, np.uint64)
-_RC_EXTERNAL_FIRST = RC_EXTERNAL[: ROUNDS_F // 2]
-_RC_EXTERNAL_LAST = RC_EXTERNAL[ROUNDS_F // 2 :]
 
 
 # ---------------------------------------------------------------------------
@@ -116,31 +121,48 @@ def _internal_linear(state):
     return gl.add(gl.mul(state, diag), np.broadcast_to(s, state.shape))
 
 
+_NATIVE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                           "poseidon2_gl.cpp")
+_NATIVE: list = []  # (the library, the tables it takes), loaded on first use
+GRIND_THREADS = min(8, len(os.sched_getaffinity(0)))
+
+
+def _native() -> tuple:
+    """The library of ``native/poseidon2_gl.cpp`` (built on first use) and
+    the addresses of the round-constant arrays its functions take (the
+    arrays are kept alive here)."""
+    if not _NATIVE:
+        lib = ctypes.CDLL(host_build.build(_NATIVE_SRC, "libgl_poseidon2"))
+        ptr = ctypes.c_void_p
+        lib.gl_permute.restype = None
+        lib.gl_permute.argtypes = [ptr] * 4
+        lib.gl_grind.restype = ctypes.c_uint64
+        lib.gl_grind.argtypes = [ptr, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64,
+                                 ptr, ptr, ptr, ctypes.c_int]
+        tables = [np.array(t, np.uint64).ravel()
+                  for t in (RC_EXTERNAL, RC_INTERNAL, INTERNAL_DIAG)]
+        _NATIVE.append((lib, tables, tuple(t.ctypes.data for t in tables)))
+    return _NATIVE[0][0], _NATIVE[0][2]
+
+
 def _permute_one(v: list) -> list:
-    """One canonical state as Python ints: the same rounds as the vector
-    path, a few hundred times faster for a single state."""
-    p = gl.P
+    """One state (a list of ints below 2^64, reduced mod p here, as the
+    reference's int arithmetic reduces them) through the C++ rounds."""
+    lib, tables = _native()
+    st = np.array(v, np.uint64) % np.uint64(gl.P)
+    lib.gl_permute(st.ctypes.data, *tables)
+    return st.tolist()
 
-    def external(v):
-        t = [v[i] + v[i + 4] for i in range(4)]
-        out = []
-        for b in (0, 4):
-            x0, x1, x2, x3 = (v[b + i] + t[i] for i in range(4))
-            s = x0 + x1 + x2 + x3
-            out += [(s + x0 + 2 * x1) % p, (s + x1 + 2 * x2) % p,
-                    (s + x2 + 2 * x3) % p, (s + x3 + 2 * x0) % p]
-        return out
 
-    v = external(v)
-    for rc in _RC_EXTERNAL_FIRST:
-        v = external([pow(x + c, 7, p) for x, c in zip(v, rc)])
-    for c in RC_INTERNAL:
-        v[0] = pow(v[0] + c, 7, p)
-        s = sum(v)
-        v = [(x * d + s) % p for x, d in zip(v, INTERNAL_DIAG)]
-    for rc in _RC_EXTERNAL_LAST:
-        v = external([pow(x + c, 7, p) for x, c in zip(v, rc)])
-    return v
+def grind(pre: np.ndarray, pos: int, threshold: int, limit: int) -> int:
+    """The smallest nonce below ``limit`` that, added to word ``pos`` of the
+    state ``pre``, permutes to a first word below ``threshold``; ``limit`` if
+    none does (``native/poseidon2_gl.cpp``'s scan, on up to GRIND_THREADS
+    host threads)."""
+    lib, tables = _native()
+    pre = np.ascontiguousarray(pre, np.uint64)
+    return min(limit, int(lib.gl_grind(pre.ctypes.data, pos, threshold, limit, *tables,
+                                       GRIND_THREADS)))
 
 
 def permute_host(state: np.ndarray) -> np.ndarray:

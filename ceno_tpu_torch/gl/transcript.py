@@ -5,11 +5,14 @@ hash/transcript.py: absorb into rate slots, permute on demand, squeeze
 consecutive slots; ext challenges read DEGREE consecutive base samples.
 Includes the PoW grinding used by the PCS query phase.
 
-Two deliberate differences, with the same values: absorbs add in Python
-ints and permute a single state through ``poseidon2.permute_host``'s
-Python-int path, and :meth:`GlTranscript.grind` raises after
+Three deliberate differences, with the same values: absorbs add in Python
+ints and permute a single state through ``poseidon2.permute_host``'s C++
+path; :meth:`GlTranscript.grind` raises after
 ``2^(pow_bits + GRIND_SLACK_BITS)`` candidates where the reference loops on
-(as the BabyBear port's ``Transcript.grind``).
+(as the BabyBear port's ``Transcript.grind``); and the grind's scan runs in
+C++ on the host (``poseidon2.grind``), one candidate after another from 0
+as the reference's chunked numpy scan goes, so it finds the same nonce,
+about ten times faster.
 """
 
 from __future__ import annotations
@@ -78,10 +81,10 @@ class GlTranscript:
         return out
 
     def grind(self, pow_bits: int) -> int:
-        """Find and absorb a nonce so that the next sample falls below
-        ``P >> pow_bits`` (a vectorized candidate search; the PoW protocol of
-        the BabyBear transcript). Raises RuntimeError after
-        ``2^(pow_bits + GRIND_SLACK_BITS)`` candidates without a hit."""
+        """Find and absorb the smallest nonce that makes the next sample fall
+        below ``P >> pow_bits`` (the PoW protocol of the BabyBear transcript).
+        Raises RuntimeError after ``2^(pow_bits + GRIND_SLACK_BITS)``
+        candidates without a hit."""
         if pow_bits <= 0:
             return 0
         threshold = np.uint64(gl.P >> pow_bits)
@@ -90,19 +93,9 @@ class GlTranscript:
         if pos == p2.RATE:
             pre = p2.permute_host(pre)
             pos = 0
-        chunk = 4096
         limit = 1 << (pow_bits + GRIND_SLACK_BITS)
-        nonce = None
-        for base in range(0, limit, chunk):
-            lanes = np.tile(pre[:, None], (1, chunk))
-            cand = np.arange(base, base + chunk, dtype=np.uint64)
-            lanes[pos] = gl.add(lanes[pos], cand)
-            out = p2.permute_host(lanes)
-            hits = np.nonzero(out[0] < threshold)[0]
-            if hits.size:
-                nonce = int(cand[int(hits[0])])
-                break
-        if nonce is None:
+        nonce = p2.grind(pre, pos, int(threshold), limit)
+        if nonce >= limit:
             raise RuntimeError(
                 f"PoW grind found no nonce in {limit} candidates at "
                 f"pow_bits={pow_bits}: the Poseidon2-GL permutation is broken"

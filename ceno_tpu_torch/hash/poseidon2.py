@@ -12,7 +12,10 @@ carry their Montgomery forms, checked against these lists by
 tests/test_torch_poseidon2.py.
 
 Two backends with one parameter set:
-  * host: numpy uint64 canonical arithmetic (transcript, verifier);
+  * host: numpy uint64 canonical arithmetic on (16, N) states, and one
+    state at a time in C++ (``native/poseidon2_bb.cpp``, built on first use
+    by utils/host_build.py and given these tables: the transcript, the
+    verifiers and the witness builders);
   * torch: :func:`permute` on a (16, B) Montgomery int32 tensor, the
     counterpart of the reference's ``permute_device``. Internally it works on
     canonical int64 values (the permutation is the same field map), which is
@@ -21,10 +24,14 @@ Two backends with one parameter set:
 
 from __future__ import annotations
 
+import ctypes
+import os
+
 import numpy as np
 import torch
 
 from ..fields import babybear as bb
+from ..utils import host_build
 
 WIDTH = 16
 RATE = 8  # the last 8 words are the capacity
@@ -107,39 +114,33 @@ def _h_internal_linear(state):
     return (state * diag % _P64 + s) % _P64
 
 
+_NATIVE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                           "poseidon2_bb.cpp")
+_NATIVE: list = []  # (the library, its tables, their addresses), loaded on first use
+
+
+def _native() -> tuple:
+    """``bb_permute`` of ``native/poseidon2_bb.cpp`` (built on first use) and
+    the addresses of the round-constant arrays it takes (kept alive here)."""
+    if not _NATIVE:
+        fn = ctypes.CDLL(host_build.build(_NATIVE_SRC, "libbb_poseidon2")).bb_permute
+        fn.restype = None
+        fn.argtypes = [ctypes.c_void_p] * 4
+        tables = [np.array(t, np.uint64).ravel()
+                  for t in (RC_EXTERNAL, RC_INTERNAL, INTERNAL_DIAG)]
+        _NATIVE.append((fn, tables, tuple(t.ctypes.data for t in tables)))
+    return _NATIVE[0][0], _NATIVE[0][2]
+
+
 def _permute_one(v: list) -> list:
-    """The permutation of one state as 16 Python ints (canonical): the host
-    transcript's and the witness builders' single states, without numpy's
+    """The permutation of one state as 16 ints below 2^64 (reduced mod p
+    here): the host transcript's and the witness builders' single states,
+    through the C++ rounds (``native/poseidon2_bb.cpp``), without numpy's
     per-call cost on 16 words."""
-    p = bb.P
-
-    def external(v):
-        t0 = v[0] + v[4] + v[8] + v[12]
-        t1 = v[1] + v[5] + v[9] + v[13]
-        t2 = v[2] + v[6] + v[10] + v[14]
-        t3 = v[3] + v[7] + v[11] + v[15]
-        out = []
-        for i in (0, 4, 8, 12):
-            x0, x1, x2, x3 = v[i] + t0, v[i + 1] + t1, v[i + 2] + t2, v[i + 3] + t3
-            s = x0 + x1 + x2 + x3
-            out += [(s + x0 + 2 * x1) % p, (s + x1 + 2 * x2) % p,
-                    (s + x2 + 2 * x3) % p, (s + x3 + 2 * x0) % p]
-        return out
-
-    v = external(v)
-    for rc in _RC_EXTERNAL_FIRST:
-        v = external([pow(x + c, 7, p) for x, c in zip(v, rc)])
-    for c in RC_INTERNAL:
-        v[0] = pow(v[0] + c, 7, p)
-        s = sum(v)
-        v = [(x * d + s) % p for x, d in zip(v, INTERNAL_DIAG)]
-    for rc in _RC_EXTERNAL_LAST:
-        v = external([pow(x + c, 7, p) for x, c in zip(v, rc)])
-    return v
-
-
-_RC_EXTERNAL_FIRST = RC_EXTERNAL[: ROUNDS_F // 2]
-_RC_EXTERNAL_LAST = RC_EXTERNAL[ROUNDS_F // 2 :]
+    fn, tables = _native()
+    st = np.array(v, np.uint64) % _P64
+    fn(st.ctypes.data, *tables)
+    return st.tolist()
 
 
 def permute_host(state: np.ndarray) -> np.ndarray:

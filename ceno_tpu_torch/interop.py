@@ -42,7 +42,11 @@ as plain dicts too (``gl_*_to_dict`` / ``gl_*_from_dict``; a commitment, which
 holds device tensors in the port and numpy in the reference, as
 ``gl_committed_to_numpy`` / ``gl_committed_from_numpy``). The reference has
 no Goldilocks serializer, so :func:`gl_chip_proof_digest` is what two chip
-proofs are compared by: :func:`digest` of the plain form.
+proofs are compared by: :func:`digest` of the plain form. The GL scheme's
+objects (GlEccQuarkProof, GlChipPiece, GlZKVMProof, GlShardedProof) go the
+same way, and :func:`gl_zkvm_proof_digest` compares two shard proofs. The GL
+key is compared, not carried: :func:`gl_vk_summary` gives its chips' names
+and kinds, a digest of its fixed columns and ``digest_elems``.
 """
 
 from __future__ import annotations
@@ -59,7 +63,10 @@ from .gkr.chip import ChipOpening, ClassMainProof, chip_digest
 from .gkr.eccquark import EccQuarkProof
 from .gkr.tower import TowerProof
 from .fields import goldilocks as gld
+from .gl.eccquark import GlEccQuarkProof
 from .gl.pcs import GlCommitted, GlOpening, GlQuery, GlTree
+from .gl.scheme import GlChipPiece, GlZKVMProof
+from .gl.shard import GlShardedProof
 from .gl.sumcheck import GlSumcheckOutput
 from .gl.zkvm import GlChipProof, GlTowerProof
 from .pcs.basefold import BasefoldParams, Committed, OpeningProof, QueryProof
@@ -400,3 +407,78 @@ def gl_chip_proof_from_dict(d: dict) -> GlChipProof:
 def gl_chip_proof_digest(p) -> str:
     """The canonical digest of a GlChipProof of either package."""
     return digest(gl_chip_proof_to_dict(p))
+
+
+def gl_ecc_quark_proof_to_dict(p) -> dict:
+    return {"num_instances": int(p.num_instances), "n_vars": int(p.n_vars),
+            "round_msgs": _gl_host(p.round_msgs), "col_evals": _gl_host(p.col_evals),
+            "final_sum": _gl_host(p.final_sum)}
+
+
+def gl_ecc_quark_proof_from_dict(d: dict) -> GlEccQuarkProof:
+    return GlEccQuarkProof(int(d["num_instances"]), int(d["n_vars"]), _gl_host(d["round_msgs"]),
+                           _gl_host(d["col_evals"]), _gl_host(d["final_sum"]))
+
+
+def gl_chip_piece_to_dict(p) -> dict:
+    """The plain form of a GlChipPiece; ``ec_proof`` and ``ec_extra`` (an
+    EC-tree chip's quark and its three extended-point openings) appear only
+    where the piece has them."""
+    d = {"root": _gl_host(p.root), "tower": gl_tower_proof_to_dict(p.tower),
+         "main_msgs": _gl_host(p.main_msgs), "wit_evals": _gl_host(p.wit_evals),
+         "fixed_evals": _gl_host(p.fixed_evals),
+         "structural_evals": _gl_host(p.structural_evals),
+         "opening": gl_opening_to_dict(p.opening)}
+    if p.ec_proof is not None:
+        d["ec_proof"] = gl_ecc_quark_proof_to_dict(p.ec_proof)
+    if p.ec_extra is not None:
+        d["ec_extra"] = {name: {"evals": _gl_host(evs), "opening": gl_opening_to_dict(op)}
+                         for name, (evs, op) in p.ec_extra.items()}
+    return d
+
+
+def gl_chip_piece_from_dict(d: dict) -> GlChipPiece:
+    ec_proof = d.get("ec_proof")
+    ec_extra = d.get("ec_extra")
+    return GlChipPiece(
+        _gl_host(d["root"]), gl_tower_proof_from_dict(d["tower"]), _gl_host(d["main_msgs"]),
+        _gl_host(d["wit_evals"]), _gl_host(d["fixed_evals"]), _gl_host(d["structural_evals"]),
+        gl_opening_from_dict(d["opening"]),
+        ec_proof=None if ec_proof is None else gl_ecc_quark_proof_from_dict(ec_proof),
+        ec_extra=None if ec_extra is None else {
+            name: (_gl_host(e["evals"]), gl_opening_from_dict(e["opening"]))
+            for name, e in ec_extra.items()})
+
+
+def gl_zkvm_proof_to_dict(p) -> dict:
+    return {"public_values": _gl_host(p.public_values),
+            "num_instances": [int(k) for k in p.num_instances],
+            "pieces": {int(ci): gl_chip_piece_to_dict(piece) for ci, piece in p.pieces.items()}}
+
+
+def gl_zkvm_proof_from_dict(d: dict) -> GlZKVMProof:
+    return GlZKVMProof(_gl_host(d["public_values"]), [int(k) for k in d["num_instances"]],
+                       {int(ci): gl_chip_piece_from_dict(piece)
+                        for ci, piece in d["pieces"].items()})
+
+
+def gl_zkvm_proof_digest(p) -> str:
+    """The canonical digest of a GlZKVMProof of either package."""
+    return digest(gl_zkvm_proof_to_dict(p))
+
+
+def gl_sharded_proof_to_dict(p) -> dict:
+    return {"proofs": [gl_zkvm_proof_to_dict(q) for q in p.proofs]}
+
+
+def gl_sharded_proof_from_dict(d: dict) -> GlShardedProof:
+    return GlShardedProof([gl_zkvm_proof_from_dict(q) for q in d["proofs"]])
+
+
+def gl_vk_summary(vk) -> dict:
+    """What two GL verifying keys are compared by, as JSON-ready data: the
+    metas' names and kinds in registry order, the digest of the fixed
+    columns by chip index, and ``digest_elems()``."""
+    return {"metas": [[m.name, m.kind] for m in vk.metas],
+            "fixed_cols": digest({int(ci): _gl_host(c) for ci, c in vk.fixed_cols.items()}),
+            "digest_elems": [int(v) for v in vk.digest_elems()]}

@@ -14,10 +14,11 @@ prove with num_instances = 0 — all rows padding).
 
 Port of ``ceno_tpu/zkvm/witgen.py``, with the same relative imports. It is
 host numpy and launches nothing on the card, so ``zkvm/shard.prove_shards``
-runs it on a host thread. The reference's hooks for the Goldilocks package's
-shard assigners (``assign_shard_fn`` / ``assign_tree_fn``) come with that
-package (M13). Unlike the reference, ``generate_witness`` times three of its
-steps in spans (``opcode-chips``, ``lookup-counts``, ``tables``).
+runs it on a host thread. A shard chip may carry its own assigners
+(``assign_shard_fn`` / ``assign_tree_fn``), as the Goldilocks shard chips of
+gl/shard_chips.py do; the septic defaults serve the BabyBear pipeline.
+Unlike the reference, ``generate_witness`` times three of its steps in spans
+(``opcode-chips``, ``lookup-counts``, ``tables``).
 """
 
 from __future__ import annotations
@@ -180,10 +181,14 @@ def generate_witness(
         for chip in shard_chips:
             tok = tok_in if chip.kind.endswith("_in") else tok_out
             fsum = None
+            # GL shard chips carry their own assigners (gl/shard_chips.py);
+            # the septic defaults serve the BabyBear pipeline
             if chip.kind.startswith("shard_ram"):
-                wit = assign_shard_ram(chip, tok)
+                fn = getattr(chip, "assign_shard_fn", None) or assign_shard_ram
+                wit = fn(chip, tok)
             else:
-                wit, fsum = assign_ec_tree(chip, tok)
+                fn = getattr(chip, "assign_tree_fn", None) or assign_ec_tree
+                wit, fsum = fn(chip, tok)
             k = tok.n
             a = AssignedChip(
                 chip.name, chip.compiled, chip.cb, wit, k, wit.shape[1],

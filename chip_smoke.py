@@ -209,6 +209,30 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      prints the span tree and the ``{"gl": {...}}`` line (seconds of the
      witness, the prove, the verify and the tampered prove, spans, launches,
      peak device memory, the golden gate).
+ 12. the Goldilocks zkVM scheme (``run_gl_scheme``): on phase 5's key, vm
+     and 2^20-step trace, ``gl/scheme.keygen_gl``, then ``prove_gl`` of the
+     trace as one standalone shard at ``GlParams()`` on the card (every
+     active chip: a GL witgen, then per chip a K14a-c commit,
+     records, towers, the masked main zerocheck and its opening), timed with
+     nothing beside it, with spans (``gl/witgen``, ``gl/commit``, and per
+     chip ``gl/chip/<name>`` over ``gl/records``, ``gl/towers``,
+     ``gl/main``, ``gl/open``, ``gl/quark``), the device audit and K14's
+     launch counts (reset just before, read just after, each at least one;
+     they are the ``kernels`` line's K14 launches, phase 11's kept beside
+     them). In phase 9's untimed window, worker jobs
+     (``gl_scheme_jobs``): the host ``verify_gl`` of that proof, shipped
+     as its interop dict, which must accept it and reject a changed
+     ``wit_evals`` entry, a flipped public value and a changed opened row;
+     and the golden gate: the port's ``prove_gl`` of tests/test_gl_scheme.py's
+     setup and ``prove_shards_gl`` of tests/test_gl_continuation.py:138's
+     two-shard setup, at the small params, on the card, whose digests must
+     equal the reference's (``ceno_tpu_torch/golden/gl_scheme.json``), with
+     ``verify_shards_gl`` accepting the two shards and rejecting a changed
+     ``PV_RW_SUM_IN`` limb, a broken pc chain and a dropped shard. It prints
+     the span tree and the ``{"gl_scheme": {...}}`` line (active chips and
+     rows, seconds of ``keygen_gl``, the witgen, the prove by span and by
+     chip, the grinds summed, the verify beside the workers, peak device
+     memory, launches, the golden results).
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
 last line. Without a CUDA device it exits 2 and prints no result.
@@ -252,6 +276,9 @@ from ceno_tpu_torch.gkr import tower
 from ceno_tpu_torch.gkr.chip import ChipError
 from ceno_tpu_torch.gkr.tower import TowerError
 from ceno_tpu_torch.gl import device as gdev
+from ceno_tpu_torch.gl import eccquark as glq
+from ceno_tpu_torch.gl import scheme as gls
+from ceno_tpu_torch.gl import shard as glshard
 from ceno_tpu_torch.gl import pcs as gpcs
 from ceno_tpu_torch.gl import sumcheck as gsc
 from ceno_tpu_torch.gl import zkvm as gz
@@ -2971,6 +2998,250 @@ def run_gl(trace, pv) -> tuple:
     return line, report, counted
 
 
+# -- phase 12: the Goldilocks zkVM scheme and its continuations ----------------------
+
+GL_SCHEME_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "gl_scheme.json")
+GL_SCHEME_GOLDEN_ITERS = 8  # tests/test_gl_scheme.py's and test_gl_continuation.py's fibonacci_vm(8)
+GL_SCHEME_GOLDEN_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
+# tests/test_gl_continuation.py:154's params, for both golden setups
+GL_SCHEME_GOLDEN_PARAMS = {"blowup_log": 1, "n_queries": 4, "pow_bits": 0, "stop_size": 32}
+
+
+def gl_golden_shard_steps(n_steps: int) -> int:
+    """tests/test_gl_continuation.py's ``max_steps_per_shard`` for a trace of
+    ``n_steps`` steps: two shards."""
+    return n_steps // 2 + 4
+
+
+GL_SCHEME_ERRORS = GL_ERRORS + (gls.GlSchemeError, glq.GlEccError)
+
+
+def gl_scheme_setup(n: int, cfg: dict, device, params=None) -> tuple:
+    """(the BabyBear key, the halted vm, its native trace, the public values)
+    of fibonacci_vm(n) at ZKVMConfig(**cfg); the key at ``params``
+    (``BasefoldParams()``; the GL scheme uses its chips, not its commitment)
+    on ``device``."""
+    cfg = ZKVMConfig(**cfg)
+    vm = programs.fibonacci_vm(n)
+    trace = native.run_trace_native(vm)
+    pk = scheme.keygen(vm.program, cfg, params or bf.BasefoldParams(), device=device)
+    return pk, vm, trace, e2e.public_values_from_vm(vm, cfg)
+
+
+def gl_span_seconds(tree: dict) -> tuple:
+    """(seconds by span summed over the chips, {chip: {span: seconds}}, the
+    grind seconds summed) of prove_gl's span tree."""
+    by_span = {name: tree[name]["total"] for name in ("gl/witgen", "gl/commit") if name in tree}
+    by_chip = {}
+    grind = 0.0
+
+    def grinds(node) -> float:
+        return sum(c["total"] if name == "grind" else grinds(c)
+                   for name, c in node["children"].items())
+
+    for name, node in tree.items():
+        if not name.startswith("gl/chip/"):
+            continue
+        chip = {"total": node["total"]}
+        for child, c in node["children"].items():
+            chip[child] = c["total"]
+            by_span[child] = by_span.get(child, 0.0) + c["total"]
+        chip["grind"] = grinds(node)
+        grind += chip["grind"]
+        by_chip[name[len("gl/chip/"):]] = chip
+    return by_span, by_chip, grind
+
+
+def run_gl_scheme(pk, vm, trace, pv, params=None) -> tuple:
+    """Phase 12, timed with nothing beside it: ``keygen_gl`` of the BabyBear
+    key ``pk``, then ``prove_gl`` of the trace as one standalone shard at ``params``
+    (``GlParams()``) on DEVICE, with spans, the device audit (every commit,
+    record, tower layer and sumcheck bank on the card, made on the main
+    thread) and K14's launch counts (reset just before, read just after).
+    Returns (the ``gl_scheme`` line, the span report, K14's launches over the
+    prove, which the caller checks, and (the GL key, the proof's interop dict,
+    the params' dict) for the untimed verification)."""
+    params = params or gpcs.GlParams()
+    seconds = {}
+    t0 = time.time()
+    vk = gls.keygen_gl(pk)
+    seconds["keygen_gl"] = time.time() - t0
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spans.enable()
+    with gl_device_audit() as seen:
+        gdev.reset_launches()
+        t0 = time.time()
+        proof = gls.prove_gl(pk, vm, trace, pv, params, device=DEVICE, vk=vk)
+        sync()
+        seconds["prove"] = time.time() - t0
+        counted = dict(gdev.LAUNCHES)
+    tree, report = spans.tree(), spans.report(min_seconds=0.05)
+    spans.disable()
+    checked = on_device(seen)
+    peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
+    by_span, by_chip, grind = gl_span_seconds(tree)
+    seconds["witgen"] = by_span.get("gl/witgen", 0.0)
+    active = {vk.metas[ci].name: {"rows": k, "height": 1 << len(proof.pieces[ci].main_msgs),
+                                  "tower_rounds": sum(len(m) for m in proof.pieces[ci].tower.round_msgs)}
+              for ci, k in enumerate(proof.num_instances) if k}
+    log(f"GL scheme: keygen_gl {seconds['keygen_gl']:.2f}s; prove_gl of {trace.n} steps, "
+        f"{len(active)} active chips, in {seconds['prove']:.2f}s (grinds {grind:.2f}s); "
+        f"launches {counted}; on {DEVICE}: {checked}")
+    line = {"steps": trace.n, "device": DEVICE, "params": dataclasses.asdict(params),
+            "seconds": seconds, "span_seconds": by_span, "grind_seconds": grind,
+            "chips": by_chip, "active_chips": active,
+            "tower_rounds": sum(c["tower_rounds"] for c in active.values()),
+            "launches": counted, "checked_on_device": checked, "max_memory_allocated": peak,
+            "proof_digest": interop.gl_zkvm_proof_digest(proof)}
+    return line, report, counted, (vk, interop.gl_zkvm_proof_to_dict(proof),
+                                   dataclasses.asdict(params))
+
+
+def gl_scheme_tampered(proof) -> list:
+    """(what, proof) pairs of tests/test_gl_scheme.py's two tampers (a
+    changed ``wit_evals`` entry of the first chip, a flipped public value)
+    and a changed opened row of the first chip's opening."""
+    ci = next(iter(proof.pieces))
+    bad_eval = copy.deepcopy(proof)
+    ev = bad_eval.pieces[ci].wit_evals
+    ev[0, 0] = (int(ev[0, 0]) + 1) % GL_P
+    bad_pv = copy.deepcopy(proof)
+    bad_pv.public_values[0] ^= np.uint64(1)
+    bad_row = copy.deepcopy(proof)
+    q = bad_row.pieces[ci].opening.queries[0]
+    q.base_col_vals[0, 0] = (int(q.base_col_vals[0, 0]) + 1) % GL_P
+    return [("witness evaluation", bad_eval), ("public value", bad_pv), ("opened row", bad_row)]
+
+
+def gl_scheme_rejects(verify, bads: list, what: str) -> dict:
+    """Each (what, proof) of ``bads`` must be rejected by ``verify`` with a
+    protocol error; returns {what: error name}."""
+    out = {}
+    for name, bad in bads:
+        try:
+            verify(bad)
+        except GL_SCHEME_ERRORS as e:
+            log(f"{what}: a changed {name} rejected ({type(e).__name__}: {str(e)[:80]})")
+            out[name] = type(e).__name__
+        else:
+            fail(f"{what}: a proof with a changed {name} was accepted")
+    return out
+
+
+def gl_scheme_verify_job(vk, data: dict, params: dict) -> dict:
+    """In a worker: ``verify_gl`` on the host of the proof that phase 12
+    proved (its interop dict), timed, then the three tampered copies, each
+    of which must be rejected."""
+    proof = interop.gl_zkvm_proof_from_dict(data)
+    params = gpcs.GlParams(**params)
+    t0 = time.time()
+    if gls.verify_gl(vk, proof, params) is not True:
+        fail("GL scheme: verify_gl did not accept the honest proof")
+    out = {"seconds": time.time() - t0}
+    log(f"GL scheme: phase 12's proof verified on the host in {out['seconds']:.2f}s")
+    out["rejected"] = gl_scheme_rejects(lambda p: gls.verify_gl(vk, p, params),
+                                        gl_scheme_tampered(proof), "GL scheme")
+    return out
+
+
+def gl_scheme_golden_standalone(want: dict | None = None) -> dict:
+    """The port's ``prove_gl`` of tests/test_gl_scheme.py's setup at the small
+    params on DEVICE: its digest, instance counts, public values and GL key
+    must equal the reference's (GL_SCHEME_GOLDEN's ``standalone``), and
+    ``verify_gl`` must accept it."""
+    if want is None:
+        with open(GL_SCHEME_GOLDEN) as f:
+            want = json.load(f)["standalone"]
+    pk, vm, trace, pv = gl_scheme_setup(GL_SCHEME_GOLDEN_ITERS, GL_SCHEME_GOLDEN_CFG, DEVICE)
+    params = gpcs.GlParams(**GL_SCHEME_GOLDEN_PARAMS)
+    vk = gls.keygen_gl(pk)
+    if interop.gl_vk_summary(vk) != want["vk"]:
+        fail("GL scheme golden: the GL key differs from the reference's")
+    proof = gls.prove_gl(pk, vm, trace, pv, params, device=DEVICE, vk=vk)
+    got = {"steps": trace.n, "digest": interop.gl_zkvm_proof_digest(proof),
+           "num_instances": [int(k) for k in proof.num_instances],
+           "public_values": [int(v) for v in proof.public_values]}
+    for key, value in got.items():
+        if value != want[key]:
+            fail(f"GL scheme golden: standalone {key} {value} differs from the reference's "
+                 f"{want[key]}")
+    gls.verify_gl(vk, proof, params)
+    log(f"GL scheme golden: the standalone proof of fibonacci_vm({GL_SCHEME_GOLDEN_ITERS}) "
+        f"({sum(1 for k in proof.num_instances if k)} active chips) equals the reference's")
+    return {"digest": got["digest"][:16], "active_chips": sum(1 for k in proof.num_instances if k)}
+
+
+def gl_shard_tampered(sproof) -> list:
+    """(what, sharded proof) of the chain tampers: a changed ``PV_RW_SUM_IN``
+    limb of the first shard carrying tokens in (tests/test_gl_continuation.py's
+    tamper), a broken pc chain, and the last shard dropped."""
+    victim = next(i for i, p in enumerate(sproof.proofs)
+                  if np.asarray(p.public_values)[layout.PV_RW_SUM_IN:layout.PV_RW_SUM_IN + 5].any())
+    bad_sum = copy.deepcopy(sproof)
+    pv = bad_sum.proofs[victim].public_values
+    pv[layout.PV_RW_SUM_IN] = (int(pv[layout.PV_RW_SUM_IN]) + 1) % GL_P
+    bad_pc = copy.deepcopy(sproof)
+    pv = bad_pc.proofs[1].public_values
+    pv[layout.PV_INIT_PC] = (int(pv[layout.PV_INIT_PC]) + 4) % GL_P
+    dropped = glshard.GlShardedProof(copy.deepcopy(sproof.proofs[:-1]))
+    return [("rw-sum limb", bad_sum), ("pc chain", bad_pc), ("dropped shard", dropped)]
+
+
+def gl_scheme_golden_shards(want: dict | None = None) -> dict:
+    """The port's ``prove_shards_gl`` of tests/test_gl_continuation.py:138's
+    two-shard setup on DEVICE: each shard's digest, instance counts and public
+    values must equal the reference's (GL_SCHEME_GOLDEN's ``two_shards``);
+    ``verify_shards_gl`` must accept the proof and reject
+    :func:`gl_shard_tampered`'s three."""
+    if want is None:
+        with open(GL_SCHEME_GOLDEN) as f:
+            want = json.load(f)["two_shards"]
+    pk, vm, trace, _ = gl_scheme_setup(GL_SCHEME_GOLDEN_ITERS, GL_SCHEME_GOLDEN_CFG, DEVICE)
+    params = gpcs.GlParams(**GL_SCHEME_GOLDEN_PARAMS)
+    steps = gl_golden_shard_steps(trace.n)
+    if steps != want["max_steps_per_shard"]:
+        fail(f"GL scheme golden: {steps} steps a shard, the reference's {want['max_steps_per_shard']}")
+    sproof = glshard.prove_shards_gl(pk, vm, trace, steps, params=params, device=DEVICE)
+    got = [{"digest": interop.gl_zkvm_proof_digest(p),
+            "num_instances": [int(k) for k in p.num_instances],
+            "public_values": [int(v) for v in p.public_values]} for p in sproof.proofs]
+    if got != want["shards"]:
+        fail(f"GL scheme golden: the two-shard proof differs from the reference's: "
+             f"{[g['digest'][:16] for g in got]} against "
+             f"{[w['digest'][:16] for w in want['shards']]}")
+    vk = gls.keygen_gl(pk)
+    if glshard.verify_shards_gl(vk, sproof, params=params) is not True:
+        fail("GL scheme golden: verify_shards_gl did not accept the two-shard proof")
+    rejected = gl_scheme_rejects(lambda p: glshard.verify_shards_gl(vk, p, params=params),
+                                 gl_shard_tampered(sproof), "GL shards")
+    log(f"GL scheme golden: the {len(got)} shards of fibonacci_vm({GL_SCHEME_GOLDEN_ITERS}) equal "
+        f"the reference's")
+    return {"digests": [g["digest"][:16] for g in got], "rejected": rejected}
+
+
+def gl_scheme_jobs(pool, vk, data: dict, params: dict) -> dict:
+    """Phase 12's untimed work, each in a worker of ``pool`` (pending results
+    for :func:`agg_results`): the two golden proofs, then the host
+    verification of phase 12's proof with its tampers."""
+    return {"gl scheme golden shards": pool.apply_async(_agg_job, (_timed, gl_scheme_golden_shards)),
+            "gl scheme verify": pool.apply_async(_agg_job, (gl_scheme_verify_job, vk, data, params)),
+            "gl scheme golden standalone":
+                pool.apply_async(_agg_job, (_timed, gl_scheme_golden_standalone))}
+
+
+def gl_scheme_collect(line: dict, checks: dict) -> None:
+    """Takes :func:`gl_scheme_jobs`' results out of ``checks`` (from
+    :func:`agg_results`) into phase 12's ``line``: the verify and its
+    seconds, and each golden proof's result and seconds."""
+    line["verify"] = checks.pop("gl scheme verify")
+    line["seconds"]["verify"] = line["verify"].pop("seconds")
+    line["golden"] = {}
+    for part in ("standalone", "shards"):
+        line["golden"][part], line["seconds"][f"golden_{part}"] = \
+            checks.pop(f"gl scheme golden {part}")
+
+
 def main() -> int:
     pools = []
     try:
@@ -3119,7 +3390,6 @@ def _main(pools: list) -> int:
     with phase("11 Goldilocks"):
         gl_line, gl_report, gl_counted = run_gl(
             trace, e2e.public_values_from_vm(vm, ZKVMConfig(**E2E_CFG)))
-        del vm, trace
         for k in kernels:
             if k["name"] in gl_counted:
                 k["launches"] = gl_counted[k["name"]]
@@ -3127,7 +3397,20 @@ def _main(pools: list) -> int:
                     fail(f"GL: kernel {k['name']} was not launched in prove_chip_gl")
     torch.cuda.empty_cache()
 
-    with phase("9-11 untimed: golden gates, CLI, row-sharded chip"), \
+    with phase("12 Goldilocks scheme"):
+        gs_line, gs_report, gs_counted, gs_verify_args = run_gl_scheme(
+            pk, vm, trace, e2e.public_values_from_vm(vm, ZKVMConfig(**E2E_CFG)))
+        gs_line["program"] = f"fibonacci_vm({E2E_ITERS})"
+        del vm, trace
+        for k in kernels:
+            if k["name"] in gs_counted:
+                k["launches_prove_chip_gl"] = k["launches"]
+                k["launches"] = gs_counted[k["name"]]
+                if k["launches"] <= 0:
+                    fail(f"GL scheme: kernel {k['name']} was not launched in prove_gl")
+    torch.cuda.empty_cache()
+
+    with phase("9-12 untimed: golden gates, CLI, row-sharded chip, GL verify"), \
             tempfile.TemporaryDirectory() as tmp:
         # nothing is timed from here on: the golden entries and gates and the
         # checks of the parsed and the tampered proof run in workers beside
@@ -3137,6 +3420,7 @@ def _main(pools: list) -> int:
         pools.append(pool)
         t = time.time()
         pending = agg_golden_check(pool)
+        pending.update(gl_scheme_jobs(pool, *gs_verify_args))
         pending.update(golden_gates(pool))
         pending.update(agg_verifications(pool, pk.vk, agg_data))
         cli_line, sharded_line = run_phase10_untimed(tmp)
@@ -3144,6 +3428,8 @@ def _main(pools: list) -> int:
         shard_line["golden"], shard_line["seconds"]["golden_check"] = \
             checks.pop("shards golden")
         gl_line["golden"], gl_line["seconds"]["golden_check"] = checks.pop("gl golden")
+        gl_scheme_collect(gs_line, checks)
+        del gs_verify_args
         golden, golden_s = checks.pop("precompiles golden")
         golden["seconds"] = golden_s
         check_shapes_ran([main_shape(SECP_CLASS_MAIN)], golden["secp"].pop("sumcheck_shapes"),
@@ -3167,6 +3453,8 @@ def _main(pools: list) -> int:
         print(json.dumps({"sharded_chip": sharded_line}), flush=True)
         print(gl_report, flush=True)
         print(json.dumps({"gl": gl_line}), flush=True)
+        print(gs_report, flush=True)
+        print(json.dumps({"gl_scheme": gs_line}), flush=True)
         print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)

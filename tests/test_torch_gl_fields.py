@@ -145,11 +145,35 @@ def test_transcript_matches_reference():
 
 
 def test_grind_is_bounded(monkeypatch):
-    """The port's grind raises where the reference would loop forever: a
-    permutation whose first word never falls below the threshold."""
+    """The port's grind raises where the reference would loop on: here no
+    nonce among the 16 it may try reaches a 24-bit threshold."""
     t = gtr.GlTranscript(b"gl-test/grind")
-    monkeypatch.setattr(gtr.p2, "permute_host",
-                        lambda st: np.full(np.shape(st), P - 1, np.uint64))
-    monkeypatch.setattr(gtr, "GRIND_SLACK_BITS", 1)
+    monkeypatch.setattr(gtr, "GRIND_SLACK_BITS", -20)
     with pytest.raises(RuntimeError, match="no nonce"):
-        t.grind(4)
+        t.grind(24)
+
+
+@pytest.mark.parametrize("seed,threads", [(0, 1), (1, 3), (2, 8)])
+def test_native_grind_matches_reference(monkeypatch, seed, threads):
+    """The C++ scan (gl/native/poseidon2_gl.cpp) on 1, 3 or 8 threads finds
+    the reference's nonce at 10 and 14 bits (the latter past its first
+    chunks), from states whose rate is part-filled or full."""
+    monkeypatch.setattr(gtr.p2, "GRIND_THREADS", threads)
+    words = np.arange(seed, seed + 9 + seed, dtype=np.uint64)
+    ours, ref = gtr.GlTranscript(b"gl-test/native"), RefTranscript(b"gl-test/native")
+    for bits in (10, 14):
+        ours.append(words)
+        ref.append(words)
+        assert ours.grind(bits) == ref.grind(bits)
+        assert np.array_equal(ours.state, ref.state)
+        assert ours.sample_base() == ref.sample_base()
+
+
+def test_single_state_words_past_p():
+    """The C++ single-state permutation reduces words at or above p (a
+    proof's sibling digests are not checked canonical) as the reference's
+    int arithmetic does."""
+    from ceno_tpu.gl import poseidon2 as rp2
+
+    words = [2**64 - 1, P, P + 1, 3, 2**63, 0, 7, P - 1]
+    assert gtr.p2._permute_one(words) == rp2.permute_host(np.array(words, np.uint64)).tolist()

@@ -31,7 +31,7 @@ def _sources():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert len(names) >= 94, names
+    assert len(names) >= 100, names
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"       # any `import jax` raises ImportError
@@ -171,3 +171,49 @@ def test_goldilocks_modules_stand_alone():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "goldilocks ok" in r.stdout
+
+
+GL_SCHEME_MODULES = [
+    "ceno_tpu_torch.fields.gl5_host", "ceno_tpu_torch.gl.gadget",
+    "ceno_tpu_torch.gl.shard_chips", "ceno_tpu_torch.gl.eccquark",
+    "ceno_tpu_torch.gl.scheme", "ceno_tpu_torch.gl.shard",
+]
+
+
+def test_goldilocks_scheme_modules_stand_alone():
+    """The Goldilocks scheme slice's 6 modules are the port's own: found
+    among its modules and driven (hash-to-curve and both shard chips'
+    witnesses for three tokens, the quark proved on CPU tensors and
+    verified) with jax and ceno_tpu blocked."""
+    assert set(GL_SCHEME_MODULES) <= set(_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceno_tpu'] = None\n"
+        "import numpy as np\n"
+        "from ceno_tpu_torch.fields import gl5_host as G5\n"
+        "from ceno_tpu_torch.gl import eccquark as Q, scheme, shard, shard_chips as sc\n"
+        "from ceno_tpu_torch.gl.transcript import GlTranscript\n"
+        "from ceno_tpu_torch.zkvm.chips.shard_ram import Tokens\n"
+        "u = lambda *v: np.array(v, np.uint64)\n"
+        "tok = Tokens(u(1, 0, 1), u(5, 64, 7), u(9, 2**32 - 1, 3), u(1, 1, 1), u(4, 5, 6))\n"
+        "_, xs, ys = sc.tokens_to_points_gl(tok)\n"
+        "assert G5.is_on_curve(xs, ys).all()\n"
+        "chips = sc.build_gl_shard_chips()\n"
+        "assert sc.assign_shard_ram_gl(chips[0], tok).shape[1] == 4\n"
+        "wit, fsum = sc.assign_ec_tree_gl(chips[2], tok)\n"
+        "assert np.array_equal(fsum, shard._gl_sum(tok, False))\n"
+        "proof, rt = Q.prove_ec_sum(wit[0:5], wit[5:10], wit[10:15], 3, fsum, GlTranscript(b'x'),\n"
+        "                           device='cpu')\n"
+        "rt_v, _ = Q.verify_ec_sum(proof, fsum, GlTranscript(b'x'))\n"
+        "assert np.array_equal(rt, rt_v) and scheme.LABEL_GL == b'ceno-gl/zkvm/v2'\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "(m.split('.')[0] in ('jax', 'jaxlib', 'ceno_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('goldilocks scheme ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "goldilocks scheme ok" in r.stdout

@@ -229,3 +229,15 @@ def test_grind_is_bounded(monkeypatch):
     monkeypatch.setattr(ptranscript.p2, "permute_host", broken)
     with pytest.raises(RuntimeError, match="no nonce"):
         Transcript().grind(4)
+
+
+def test_single_state_words_past_p():
+    """The C++ single-state permutation (hash/native/poseidon2_bb.cpp)
+    reduces words at or above p as the reference's permutation does, and
+    equals the vector path."""
+    words = [2**64 - 1, P, P + 1, 2**40] + list(range(12))
+    want = rp2.permute_host(np.array(words, np.uint64) % np.uint64(P)).tolist()
+    assert p2._permute_one(words) == want
+    st = np.random.default_rng(4).integers(0, P, size=(16, 5), dtype=np.uint64)
+    for j in range(5):
+        assert p2._permute_one(st[:, j].tolist()) == p2.permute_host(st)[:, j].tolist()
