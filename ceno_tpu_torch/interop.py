@@ -12,7 +12,9 @@ ClassMainProof, ChipOpening, TraceView) go the same way: ``asdict`` in, a
 ``*_from_dict`` here out. Field values in the plain form are canonical numpy
 ``uint64``, as the reference keeps them on the host. :func:`digest` hashes a
 plain form, so either package's object can be held against a committed
-digest.
+digest. A WHIR opening (WhirProof with its WhirIter and WhirQuerySet) goes
+as :func:`whir_proof_to_dict` / :func:`whir_proof_from_dict`, and
+:func:`opening_from_dict` takes a jagged opening of either kind.
 
 A whole zkVM proof goes across as its ``proof_to_bytes`` bytes: the format
 is the same in both packages, so the port's ``zkvm/serialize.proof_from_bytes``
@@ -72,6 +74,7 @@ from .gl.zkvm import GlChipProof, GlTowerProof
 from .pcs.basefold import BasefoldParams, Committed, OpeningProof, QueryProof
 from .pcs.jagged import JaggedClaim, JaggedLayout, JaggedOpening, SliceRef
 from .pcs.merkle import MerkleTree
+from .pcs.whir import WhirIter, WhirProof, WhirQuerySet
 from .zkvm import serialize
 from .zkvm.aggregate import AggKey, AggProof, ShardGeometry
 from .zkvm.chips.opcodes import TraceView
@@ -130,7 +133,12 @@ def claims_from_dicts(ds: list) -> list:
 
 
 def opening_from_dict(d: dict) -> JaggedOpening:
+    """A jagged opening with either inner opening: WHIR's plain form has
+    ``iters``, Basefold's has ``queries``."""
     o = d["opening"]
+    if "iters" in o:
+        return JaggedOpening(_u64(d["trans_msgs"]), _u64(d["v_evals"]),
+                             whir_proof_from_dict(o))
     queries = [
         QueryProof(
             int(q["index"]), _u64(q["base_rows"]), _u64(q["base_paths"]),
@@ -143,6 +151,34 @@ def opening_from_dict(d: dict) -> JaggedOpening:
         _u64(o["tail"]), _u64(o["point_evals"]), queries, int(o["pow_nonce"]),
     )
     return JaggedOpening(_u64(d["trans_msgs"]), _u64(d["v_evals"]), opening)
+
+
+# -- WhirProof, WhirIter, WhirQuerySet ------------------------------------------
+
+def _whir_queries_to_dict(q) -> dict:
+    return {"indices": [int(i) for i in q.indices], "leaves": _u64(q.leaves),
+            "paths": _u64(q.paths), "pow_nonce": int(q.pow_nonce)}
+
+
+def _whir_queries_from_dict(d: dict) -> WhirQuerySet:
+    return WhirQuerySet([int(i) for i in d["indices"]], _u64(d["leaves"]), _u64(d["paths"]),
+                        int(d["pow_nonce"]))
+
+
+def whir_proof_to_dict(p) -> dict:
+    """Either package's WhirProof as plain data (the form ``asdict`` gives)."""
+    return {"iters": [{"sumcheck_msgs": _u64(it.sumcheck_msgs), "root": _u64(it.root),
+                       "y_ood": _u64(it.y_ood), "queries": _whir_queries_to_dict(it.queries)}
+                      for it in p.iters],
+            "final_msgs": _u64(p.final_msgs), "final_g": _u64(p.final_g),
+            "final_queries": _whir_queries_to_dict(p.final_queries)}
+
+
+def whir_proof_from_dict(d: dict) -> WhirProof:
+    return WhirProof(
+        [WhirIter(_u64(it["sumcheck_msgs"]), _u64(it["root"]), _u64(it["y_ood"]),
+                  _whir_queries_from_dict(it["queries"])) for it in d["iters"]],
+        _u64(d["final_msgs"]), _u64(d["final_g"]), _whir_queries_from_dict(d["final_queries"]))
 
 
 # -- GKR: TowerProof, ClassMainProof, ChipOpening, TraceView ------------------

@@ -54,12 +54,13 @@ def build_eq(point, scale=None):
     """eq(x, r) table: (4, 2^n) with eq[i] = prod_j (i_j r_j + (1-i_j)(1-r_j)).
 
     ``point``: (n, 4) Montgomery ext, LSB-first. Optional ext ``scale`` (4,)
-    premultiplies every entry.
+    premultiplies every entry. A batch of T points is (n, 4, T) with scales
+    (4, T): then the tables are (4, T, 2^n).
     """
     n = point.shape[0]
-    e = ext4.ones((1,), point.device) if scale is None else scale[:, None]
+    e = ext4.ones((1,), point.device) if scale is None else scale[..., None]
     for j in range(n):
-        hi = ext4.mul(e, point[j][:, None])
+        hi = ext4.mul(e, point[j][..., None])
         lo = ext4.sub(e, hi)
         e = torch.cat([lo, hi], dim=-1)
     return e

@@ -71,7 +71,7 @@ class BasefoldParams:
     stop_size: int = 256  # codeword sent in clear below this
     # PcsKind mirror: True = one stacked commitment per shard (pcs/jagged.py)
     jagged: bool = True
-    # inner opening of the jagged batch; the port has "basefold" only
+    # inner opening of the jagged batch: "basefold" or "whir" (pcs/whir.py)
     pcs_kind: str = "basefold"
 
     @property

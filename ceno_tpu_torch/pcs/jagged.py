@@ -2,7 +2,7 @@
 
 Counterpart of ``ceno_tpu/pcs/jagged.py`` (the role mirror of the reference's
 default PcsKind::Jagged, e2e.rs:103-129), with its device opening path and
-the ``pcs_kind="basefold"`` inner opening only:
+both inner openings (``pcs_kind`` "basefold" or "whir"):
 
   * STACK: every chip column (height h) becomes a SLICE of a matrix with
     uniform height N_r = the largest class height. A matrix column packs
@@ -25,7 +25,8 @@ the ``pcs_kind="basefold"`` inner opening only:
     recomputes each w_c(r) ANALYTICALLY as
         sum_t gamma_t * eq(z_t, r[:log h]) * eq(bits(u_t), r[log h:])
     checks the recombination, and a SINGLE-POINT Basefold batch opening at
-    r binds the V_c(r) to the commitment.
+    r (or, with ``pcs_kind="whir"``, a WHIR opening, pcs/whir.py) binds the
+    V_c(r) to the commitment.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..sumcheck import prover as sc_prover
 from ..sumcheck import verifier as sc_verifier
 from ..sumcheck.prover import TermSpec
 from ..utils import spans
-from . import basefold
+from . import basefold, whir
 from .basefold import BasefoldParams, Claim
 
 
@@ -107,18 +108,11 @@ class JaggedClaim:
 class JaggedOpening:
     trans_msgs: np.ndarray   # translation sumcheck round messages
     v_evals: np.ndarray      # (n_mat_cols, 4) canonical V_c(r)
-    opening: basefold.OpeningProof
+    opening: basefold.OpeningProof | whir.WhirProof   # by params.pcs_kind
 
 
 def _point_key(z: np.ndarray) -> bytes:
     return np.ascontiguousarray(z, np.uint64).tobytes()
-
-
-def _require_basefold(params: BasefoldParams) -> None:
-    if params.pcs_kind != "basefold":
-        raise NotImplementedError(
-            f"pcs_kind={params.pcs_kind!r}: the port opens with Basefold only"
-        )
 
 
 def _weight_block(g, eq):
@@ -211,7 +205,6 @@ def _translation_columns(committed, layout: JaggedLayout, claims: list, gammas):
 
 def open_jagged(committed, layout: JaggedLayout, claims: list,
                 transcript, params: BasefoldParams) -> JaggedOpening:
-    _require_basefold(params)
     log_r = layout.n_r.bit_length() - 1
     gammas = transcript.sample_ext_pows(len(claims))
     with spans.span("trans-weights"):
@@ -221,12 +214,26 @@ def open_jagged(committed, layout: JaggedLayout, claims: list,
         out = sc_prover.prove(base_cols, ext_cols, terms, log_r, transcript)
     transcript.append(out.final_base.ravel())
     v_evals = out.final_base
-    pcs_claims = [Claim(0, c, v_evals[c]) for c in range(layout.n_mat_cols)]
-    with spans.span("basefold-open"):
-        opening = basefold.open_batch(
-            committed, np.stack([out.point]), pcs_claims, transcript, params
-        )
+    if params.pcs_kind == "whir":
+        with spans.span("whir-open"):
+            opening = whir.open_whir(
+                committed, out.point, v_evals, transcript, params.blowup_log,
+                _whir_params(params),
+            )
+    else:
+        pcs_claims = [Claim(0, c, v_evals[c]) for c in range(layout.n_mat_cols)]
+        with spans.span("basefold-open"):
+            opening = basefold.open_batch(
+                committed, np.stack([out.point]), pcs_claims, transcript, params
+            )
     return JaggedOpening(out.proof.round_msgs, v_evals, opening)
+
+
+def _whir_params(params: BasefoldParams) -> whir.WhirParams:
+    return whir.WhirParams(
+        security_bits=params.n_queries * max(1, params.blowup_log),
+        pow_bits=params.pow_bits,
+    )
 
 
 class JaggedError(Exception):
@@ -274,9 +281,14 @@ def verify_jagged(root, layout: JaggedLayout, claims: list,
         if not replay.structure_only():
             raise JaggedError("jagged translation recombination mismatch")
 
-    _require_basefold(params)
-    pcs_claims = [Claim(0, c, v_evals[c]) for c in range(layout.n_mat_cols)]
-    basefold.verify_batch(
-        root, log_r, layout.n_mat_cols, np.stack([point]), pcs_claims,
-        proof.opening, transcript, params,
-    )
+    if params.pcs_kind == "whir":
+        whir.verify_whir(
+            root, log_r, layout.n_mat_cols, point, v_evals, proof.opening,
+            transcript, params.blowup_log, _whir_params(params),
+        )
+    else:
+        pcs_claims = [Claim(0, c, v_evals[c]) for c in range(layout.n_mat_cols)]
+        basefold.verify_batch(
+            root, log_r, layout.n_mat_cols, np.stack([point]), pcs_claims,
+            proof.opening, transcript, params,
+        )

@@ -15,12 +15,11 @@ verifier pins its own and rejects proofs whose embedded copies differ
 (ADVICE.md: an attacker must not choose n_queries/blowup).
 
 Counterpart of ``ceno_tpu/zkvm/serialize.py``: the same format, byte for
-byte. Its whitelist holds the port's own classes of a shard's proof, the
-EC-sum quark's, the sharded proof's and the aggregation proof's; the
-classes of WHIR, which is not ported, are left out, so a proof naming one is
-refused with ProofFormatError. Every array of a proof object must be numpy, ``uint64``
-exactly where the reference has one: a tensor raises, and another dtype
-encodes to other bytes.
+byte. Its whitelist holds the port's own classes of the reference's: a
+shard's proof with either inner opening (Basefold's or WHIR's), the EC-sum
+quark's, the sharded proof's and the aggregation proof's. Every array of a
+proof object must be numpy, ``uint64`` exactly where the reference has one:
+a tensor raises, and another dtype encodes to other bytes.
 """
 
 from __future__ import annotations
@@ -48,6 +47,7 @@ def _whitelist():
     from ..gkr.tower import TowerProof
     from ..pcs.basefold import BasefoldParams, OpeningProof, QueryProof
     from ..pcs.jagged import JaggedOpening
+    from ..pcs.whir import WhirProof, WhirIter, WhirQuerySet
     from .tables import ZKVMConfig
     from ..emulator.state import Platform
     from .scheme import ZKVMProof
@@ -58,6 +58,7 @@ def _whitelist():
     classes = [
         ZKVMProof, ChipProof, ClassMainProof, TowerProof,
         OpeningProof, QueryProof, JaggedOpening,
+        WhirProof, WhirIter, WhirQuerySet,
         BasefoldParams, ZKVMConfig, Platform, EccQuarkProof, ShardedProof,
         AggProof, ShardGeometry,
     ]

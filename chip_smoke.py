@@ -37,7 +37,9 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      and at the aggregation's class mains (``AGG_CLASS_MAINS``: the 2^15
      class of pcs_merkle_rows, the 2^12 class of fs_duplex, both of degree
      8, the 2-row class of 6,299 terms; phase 9 runs them), K1 and K2 also
-     at the aggregation's commit (415, 2^18);
+     at the aggregation's commit (415, 2^18), K6a and K6b (ext mode) at
+     WHIR's first round (the bank [g, w, ones] of 2^19, one term, degree 2;
+     phase 13 runs it);
      with ptxas's registers, stack frame and spills for each, and for K6a
      the launch plan its wrapper chose (``terms.round_evals_plan``). The
      Goldilocks commit kernels likewise (``gl_kernels_vs_plain``), at phase
@@ -82,7 +84,8 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      before keygen and before the second prove, and read just after each:
      K1, K2, K6a, K6b and K5/K7);
      both proofs must be the same bytes, and a changed public value,
-     class-main eval and opening row must each be rejected. Last, the proof of ``fibonacci_vm(100)`` at
+     class-main eval and opening row must each be rejected. Its golden
+     gate (run in phase 9's untimed window): the proof of ``fibonacci_vm(100)`` at
      ``ZKVMConfig(shl_x_bits=6, mem_words_log=7)`` and ``BasefoldParams()``
      must have the SHA-256 and length of the reference's
      (``ceno_tpu_torch/golden/e2e_fibonacci.json``) and verify;
@@ -128,13 +131,13 @@ the shapes of the 2^20-step fibonacci proof, in phases:
   8. report: phase 3's span tree; the launch counts of phase 3 and of
      phase 5's keygen and timed prove, each equal to its trees' launch
      plans (K1 once a tree, K2 as ``merkle_plan`` plans it); phase 4's
-     span tree and its ``{"gkr": {...}}`` line; phase 5's span tree, its
-     proof size beside the reference's, and its ``{"e2e": {...}}`` line; a
+     span tree and its ``{"gkr": {...}}`` line; phase 5's span tree and its
+     proof size beside the reference's; a
      ``{"kernels": [...]}`` line (the largest shapes; launches over phase 5's
      timed prove, each kernel's at least one); phase 6's span tree and its
-     launch counts; phase 7's span tree and its launch counts (their
-     ``{"shards": ...}`` and ``{"precompiles": ...}`` lines wait for their
-     golden gates: phase 9 prints them);
+     launch counts; phase 7's span tree and its launch counts (the
+     ``{"e2e": ...}``, ``{"shards": ...}`` and ``{"precompiles": ...}``
+     lines wait for their golden gates: phase 9 prints them);
   9. aggregation: the main process aggregates phase 5's 2^20 proof with
      phase 5's key (``prove_aggregation`` with spans, the device audit and
      the launch counts, reset just before and read just after, each
@@ -144,7 +147,7 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      bitwise and timed, on the first-round inputs of its 2^15 class main;
      nothing else runs on the host or the card while these are timed.
      Then, timed by no metric, worker processes (``agg_pool``: spawned,
-     each its own CUDA context) run the golden gates of phases 6 and 7,
+     each its own CUDA context) run the golden gates of phases 5, 6 and 7,
      verify the proof read back from its bytes, reject it with a changed
      public value, and prove the entries of
      ``ceno_tpu_torch/golden/aggregation_fibonacci.json`` on the card,
@@ -152,12 +155,17 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      ``agg_proof_to_bytes``, the key's digest): the single
      ``prove_aggregation`` of ``fibonacci_vm(8)``, the sharded
      ``fibonacci_vm(12)`` (``prove_shard_aggregation``), the level-2
-     ``prove_chipset_aggregation`` of that single aggregation, all at
-     ``tests/test_aggregate.py``'s setup, and ``prove_aggregation`` of
-     ``fibonacci_vm(100)`` at ``BasefoldParams()``; the matching key-less
-     verifier must accept each, and reject the single aggregation with a
+     ``prove_chipset_aggregation`` of that single aggregation (over its
+     stored bytes, with its key rebuilt key-less, so that it need not wait
+     for the single one), all at ``tests/test_aggregate.py``'s setup, and
+     ``prove_aggregation`` of ``fibonacci_vm(100)`` at ``BasefoldParams()``;
+     the matching key-less verifier must accept each (the level-2 one the
+     reference's stored bytes, in a worker of its own beside the level-2
+     prove, whose digests must equal them), and reject the single aggregation with a
      changed public value, a wrong geometry flag and a changed class-main
-     eval. It prints phase 6's ``{"shards": {...}}`` line (plan, per-shard,
+     eval. It prints phase 5's ``{"e2e": {...}}`` line (seconds per stage,
+     proof size, peak memory, launches, the golden gate), phase 6's
+     ``{"shards": {...}}`` line (plan, per-shard,
      pipelined and stitch-verify seconds, tokens and quark rounds per shard,
      peak device memory, the golden gate) and phase 7's ``{"precompiles":
      {...}}`` line (steps, rows per precompile chip, seconds per stage and
@@ -233,6 +241,29 @@ the shapes of the 2^20-step fibonacci proof, in phases:
      rows, seconds of ``keygen_gl``, the witgen, the prove by span and by
      chip, the grinds summed, the verify beside the workers, peak device
      memory, launches, the golden results).
+ 13. WHIR (``run_whir``), with nothing beside it: on phase 5's vm and
+     2^20-step trace, ``keygen`` at ``BasefoldParams(pcs_kind="whir")``
+     (bench.py's config; blowup 8, 29 queries, 16 PoW bits), timed, then one
+     ``prove``, timed, whose jagged openings are WHIR's (``pcs/whir.py``:
+     rounds on K6a/K6b, new oracles through the NTT encode and K1/K2), with
+     spans (``whir/rounds``, ``whir/encode``, ``whir/tree``, ``whir/grind``,
+     ``whir/queries``), the device audit (phase 5's, and WHIR's g, weights,
+     oracles and trees, each made on the main thread) and the launch counts
+     (reset just before, read just after; those inside the WHIR openings
+     apart, each of K1, K2, K6a and K6b at least once; the rounds must run
+     phase 2's first-round bank), then the host ``verify``, timed. In
+     phase 9's untimed window one worker verifies the proof with a changed
+     query leaf, OOD value or final function, each of which must be
+     rejected (``whir_rejects_job``), and another runs its golden gate
+     (``whir_golden_check``): tests/test_whir.py's seeded ``open_whir``
+     case (the proof's digest and the transcript's end state), the proof of
+     ``fibonacci_vm(8)`` at tests/test_whir.py::test_whir_zkvm_e2e's params
+     and that of ``fibonacci_vm(100)`` at ``BasefoldParams(pcs_kind="whir")``
+     must equal the reference's (``ceno_tpu_torch/golden/whir_fibonacci.json``)
+     and verify. It prints the span tree and the ``{"whir": {...}}`` line
+     (seconds of keygen, prove, verify and the golden gate, the prove's
+     stages and WHIR spans, the openings' shapes and oracles, proof bytes,
+     peak device memory, launches, the rejections, the golden results).
 
 Any mismatch, rejected honest proof or exception exits nonzero before the
 last line. Without a CUDA device it exits 2 and prints no result.
@@ -266,6 +297,7 @@ from ceno_tpu_torch.emulator import keccak, native, programs
 from ceno_tpu_torch.emulator.rv32im import assemble
 from ceno_tpu_torch.emulator.state import CYCLE_START, Platform, VMState, make_program
 from ceno_tpu_torch.fields import babybear as bb
+from ceno_tpu_torch.fields import ext4
 from ceno_tpu_torch.fields import gl_host
 from ceno_tpu_torch.fields import goldilocks as gld
 from ceno_tpu_torch.fields import goldilocks_ext2 as gx
@@ -292,8 +324,10 @@ from ceno_tpu_torch.parallel import sharded as psharded
 from ceno_tpu_torch.pcs import basefold as bf
 from ceno_tpu_torch.pcs import commitcache
 from ceno_tpu_torch.pcs import jagged as jg
+from ceno_tpu_torch.pcs import whir
 from ceno_tpu_torch.sumcheck import fused, terms
 from ceno_tpu_torch.sumcheck import prover as sc_prover
+from ceno_tpu_torch.sumcheck.host_impl import build_eq_host
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 from ceno_tpu_torch.utils import cuda_build, spans
 from ceno_tpu_torch.zkvm import aggregate, e2e, layout, scheme, serialize, shard, witgen
@@ -866,20 +900,24 @@ def quark_terms(rng) -> tuple:
 
 
 def round_evals_bound(base, ext, bidx, eidx, scalars, deg: int) -> tuple:
-    """K6a's least time on these inputs: each word of both banks read once;
-    per live term (nonzero scalar), node and element of the half-cube, one
-    product for each factor past the first (base 1, ext EXT_PRODUCTS, a base
-    product into an ext one 4; the sentinel factors need none), and one ext
-    product per live term and node for its scalar."""
-    cb, ce, half = base.shape[0] - 1, ext.shape[1] - 1, ext.shape[2] // 2
+    """K6a's least time on these inputs: each column that a live term
+    (nonzero scalar) names read once, the ones sentinels not at all (the
+    kernel drops a factor that names one), and the (deg + 1, 4) sums
+    written; per live term, node and element of the half-cube, one product
+    for each factor past the first (base 1, ext EXT_PRODUCTS, a base product
+    into an ext one 4; the sentinel factors need none), and one ext product
+    per live term and node for its scalar. ``base`` may be None (no base
+    factors)."""
+    cb = base.shape[0] - 1 if base is not None else 0
+    ce, n = ext.shape[1] - 1, ext.shape[2]
     live = scalars.ne(0).any(dim=0).cpu().numpy()
-    nb = (bidx.cpu().numpy() != cb).sum(axis=1)[live]
-    ne = (eidx.cpu().numpy() != ce).sum(axis=1)[live]
+    bidx, eidx = bidx.cpu().numpy()[live], eidx.cpu().numpy()[live]
+    nb, ne = (bidx != cb).sum(axis=1), (eidx != ce).sum(axis=1)
     per_elem = (np.maximum(nb - 1, 0) + EXT_PRODUCTS * np.maximum(ne - 1, 0)
                 + 4 * ((nb > 0) & (ne > 0)))
-    products = (deg + 1) * (half * int(per_elem.sum()) + EXT_PRODUCTS * int(live.sum()))
-    nbytes = 4 * (ext.numel() + (base.numel() if bidx.shape[1] else 0))
-    return bound_of(products * MULS_PER_PRODUCT, nbytes)
+    products = (deg + 1) * (n // 2 * int(per_elem.sum()) + EXT_PRODUCTS * int(live.sum()))
+    read = len(np.setdiff1d(bidx, [cb])) + 4 * len(np.setdiff1d(eidx, [ce]))
+    return bound_of(products * MULS_PER_PRODUCT, 4 * (n * read + 4 * (deg + 1)))
 
 
 def fold_bound(cb: int, ce1: int, n: int) -> tuple:
@@ -904,7 +942,8 @@ def k6a_row(what: str, base, ext, bidx, eidx, scalars, deg: int, ptxas: dict) ->
     err = max_abs_err(got, want)
     b_ms, b_by = round_evals_bound(base, ext, bidx, eidx, scalars, deg)
     kernel = f"round_evals_kernel<{deg}>"
-    row = dict(name="round_evals", shape=f"{what}: base {tuple(base.shape)}, ext "
+    base_shape = tuple(base.shape) if base is not None else None
+    row = dict(name="round_evals", shape=f"{what}: base {base_shape}, ext "
                f"{tuple(ext.shape)}, T {bidx.shape[0]}, DB {bidx.shape[1]}, DE {eidx.shape[1]}, "
                f"deg {deg}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, plan=dataclasses.asdict(plan),
@@ -995,6 +1034,48 @@ def duplex_vs_plain(rng, ptxas) -> list:
     return rows
 
 
+def k6b_row(what: str, base, ext, r, ptxas) -> dict:
+    """K6b against its plain version, bitwise, with the times of both and the
+    bound: mixed mode (the base bank folded into the ext one) when ``base``
+    is given, else ext mode."""
+    n, ce1 = ext.shape[2], ext.shape[1]
+    if base is not None:
+        mode, fold, plain, args = "mixed", terms.fold_banks, terms.fold_banks_plain, (base, ext, r)
+        cols = (base.shape[0] - 1, ce1)
+    else:
+        mode, fold, plain, args = "ext", terms.fold_ext_bank, terms.fold_ext_bank_plain, (ext, r)
+        cols = (0, ce1)
+    got = fold(*args)
+    ms = cuda_ms(lambda: fold(*args), reps=5)
+    want, plain_ms = wall_ms(lambda: plain(*args))
+    err = max_abs_err(got, want)
+    b_ms, b_by = fold_bound(*cols, n)
+    row = dict(name="fold", shape=f"{what}, {mode} mode: {cols[0]} base and {cols[1]} ext "
+               f"columns of 2^{n.bit_length() - 1}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, ptxas=ptxas)
+    log(f"K6b {row['shape']}: max_abs_err {err}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by})")
+    if err:
+        fail(f"K6b ({mode} mode) differs from its plain version on the {what}")
+    return row
+
+
+def whir_round_rows(rng, ptxas: dict) -> list:
+    """K6a and K6b (ext mode) against their plain versions, bitwise, at the
+    first round of the 2^20 fibonacci's WHIR witness opening (phase 13
+    checks that its prove runs it), as ``pcs/whir._rounds`` calls them: the
+    seeded bank [g, w, ones] (4, 3, 2^WHIR_LOG_N), one term g*w, degree 2,
+    no base bank; timed, with the bound."""
+    _, ext = random_banks(rng, 0, 2, 1 << WHIR_LOG_N)
+    what = f"WHIR's first round, the bank [g, w, ones] of 2^{WHIR_LOG_N}"
+    eidx = torch.tensor([[0, 1]], dtype=torch.int32, device=DEVICE)
+    bidx = torch.zeros((1, 0), dtype=torch.int32, device=DEVICE)
+    rows = [k6a_row(what, None, ext, bidx, eidx, ext4.ones((1,), DEVICE), 2, ptxas)]
+    r = bb.to_device(rng.integers(0, bb.P, size=4, dtype=np.uint64), DEVICE)
+    rows.append(k6b_row(what, None, ext, r, ptxas.get("fold_kernel", "not built in this process")))
+    return rows
+
+
 def sumcheck_kernels_vs_plain(rng, ptxas: dict) -> tuple:
     """K6a, K6b (mixed and ext mode) and K5/K7 against their plain versions,
     bitwise, at the main path's largest shapes, with the times of both and
@@ -1002,30 +1083,15 @@ def sumcheck_kernels_vs_plain(rng, ptxas: dict) -> tuple:
     rows, results = [], {}
     regs = lambda k: ptxas.get(k, "not built in this process")  # noqa: E731
     for what, base, ext, bidx, eidx, scalars, deg in main_path_sumchecks(rng):
-        n, cb, ce1 = ext.shape[2], base.shape[0] - 1, ext.shape[1]
         rows.append(k6a_row(what, base, ext, bidx, eidx, scalars, deg, ptxas))
         results.setdefault("round_evals", rows[-1])
         r = bb.to_device(rng.integers(0, bb.P, size=4, dtype=np.uint64), DEVICE)
-        for mode, fold, plain, args, cols in (
-                ("mixed", terms.fold_banks, terms.fold_banks_plain, (base, ext, r), (cb, ce1)),
-                ("ext", terms.fold_ext_bank, terms.fold_ext_bank_plain, (ext, r), (0, ce1))):
-            got = fold(*args)
-            ms = cuda_ms(lambda: fold(*args), reps=5)
-            want, plain_ms = wall_ms(lambda: plain(*args))
-            err = max_abs_err(got, want)
-            b_ms, b_by = fold_bound(*cols, n)
-            rows.append(dict(name="fold", shape=f"{what}, {mode} mode: {cols[0]} base and "
-                             f"{cols[1]} ext columns of 2^{n.bit_length() - 1}", max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             ptxas=regs("fold_kernel")))
-            if what.startswith("tower") and mode == "ext":
-                results.setdefault("fold", rows[-1])
-            log(f"K6b {rows[-1]['shape']}: max_abs_err {err}, kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
-            if err:
-                fail(f"K6b ({mode} mode) differs from its plain version on the {what}")
-            del got, want
+        rows.append(k6b_row(what, base, ext, r, regs("fold_kernel")))
+        rows.append(k6b_row(what, None, ext, r, regs("fold_kernel")))
+        if what.startswith("tower"):
+            results.setdefault("fold", rows[-1])
         del base, ext
+    rows += whir_round_rows(rng, ptxas)
     rows += duplex_vs_plain(rng, regs("duplex_kernel"))
     results["duplex"] = rows[-len(DUPLEX_STEPS)]
     lines = {"round_evals": "ceno_tpu/sumcheck/terms.py:108",
@@ -2288,8 +2354,12 @@ def run_keccak_loop(n: int, cfg, params, keep: dict | None = None) -> tuple:
 # -- phase 9: aggregation -----------------------------------------------------------
 
 AGG_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "aggregation_fibonacci.json")
+# the stored proofs of its single and level-2 entries (tools/torch_agg_golden.py)
+AGG_GOLDEN_PROOF = os.path.join(ROOT, "ceno_tpu_torch", "golden", "aggregation_{}.bin")
 AGG_GOLDEN_CFG = {"shl_x_bits": 6, "mem_words_log": 7}
-AGG_WORKERS = 6  # the untimed jobs: 4 golden entries, 3 golden gates, 2 checks
+# the untimed jobs: 4 golden entries, 5 golden gates, 2 aggregation checks,
+# phase 12's 3 jobs and phase 13's rejections
+AGG_WORKERS = 6
 AGG_ERRORS = PROTOCOL_ERRORS + (aggregate.AggError, eccquark.EccError,
                                 serialize.ProofFormatError)
 
@@ -2340,11 +2410,11 @@ def check_agg_rejections(verify, bads: list, what: str) -> dict:
 
 def agg_golden_entry(name: str, want: dict) -> dict:
     """One entry of AGG_GOLDEN proved by the port on DEVICE: the shard proof
-    (or proofs) of its setup, then its aggregation (``prove_aggregation``,
-    ``prove_shard_aggregation``, or ``prove_chipset_aggregation`` over the
-    single aggregation), whose digests must equal the entry's; the matching
-    key-less verifier must accept it, and the single aggregation's tampered
-    proofs must be rejected."""
+    (or proofs) of its setup, then its aggregation (``prove_aggregation`` or
+    ``prove_shard_aggregation``), whose digests must equal the entry's; the
+    matching key-less verifier must accept it, and the single aggregation's
+    tampered proofs must be rejected. The level-2 entry is
+    :func:`agg_level2_entry` and :func:`agg_level2_verify`."""
     t0 = time.time()
     cfg, params = ZKVMConfig(**want["cfg"]), bf.BasefoldParams(**want["params"])
     vm = programs.fibonacci_vm(int(re.search(r"\d+", want["program"]).group()))
@@ -2365,20 +2435,10 @@ def agg_golden_entry(name: str, want: dict) -> dict:
 
         def verify(p):
             return aggregate.verify_aggregation(p, pk.vk, params=params)
-        if name == "level2":
-            inner_key, inner = key, aproof
-            key, aproof = aggregate.prove_chipset_aggregation(inner_key, [inner], params=params,
-                                                              device=DEVICE)
-
-            def verify(p):
-                return aggregate.verify_chipset_aggregation(p, inner_key, [inner.public_values],
-                                                            params=params)
     sync()
     got.update(agg_digests(key, aproof, params))
     got["prove_s"] = time.time() - t0
-    if {k: got[k] for k in want if k in got} != {k: want[k] for k in got if k in want}:
-        fail(f"aggregation ({name}): the port's {want['entry']} of {want['program']} differs "
-             f"from the reference's: {got} against {want}")
+    agg_golden_compare(name, want, got)
     t0 = time.time()
     if verify(aproof) is not True:
         fail(f"aggregation ({name}): the key-less verifier did not accept the honest proof")
@@ -2392,19 +2452,88 @@ def agg_golden_entry(name: str, want: dict) -> dict:
     return got
 
 
-def agg_golden_check(pool, names=None) -> dict:
-    """:func:`agg_golden_entry` for each entry of AGG_GOLDEN (or ``names``),
-    each in a worker of ``pool`` (:func:`agg_pool`); returns {name: the
-    worker's pending result}, which :func:`agg_results` waits for."""
+def agg_golden_compare(name: str, want: dict, got: dict) -> None:
+    if {k: got[k] for k in want if k in got} != {k: want[k] for k in got if k in want}:
+        fail(f"aggregation ({name}): the port's {want['entry']} of {want['program']} differs "
+             f"from the reference's: {got} against {want}")
+
+
+def stored_agg_proof(name: str, want: dict) -> tuple:
+    """AGG_GOLDEN's stored bytes of entry ``name`` (the reference's: their
+    SHA-256 and length are the entry's ``want``), parsed: (proof, params)."""
+    with open(AGG_GOLDEN_PROOF.format(name), "rb") as f:
+        data = f.read()
+    if (hashlib.sha256(data).hexdigest(), len(data)) != (want["proof_sha256"],
+                                                         want["proof_bytes"]):
+        fail(f"aggregation: {os.path.relpath(AGG_GOLDEN_PROOF.format(name), ROOT)} is not the "
+             f"proof that {os.path.relpath(AGG_GOLDEN, ROOT)} names")
+    return serialize.agg_proof_from_bytes(data)
+
+
+def level2_inner(want: dict) -> tuple:
+    """The level-2 entry's inner proof, the stored ``single`` aggregation
+    (``want``, which the ``single`` gate holds the port's own to), and its
+    key, rebuilt key-less (``expected_agg_key``) from the shard key of its
+    setup on DEVICE: their digests must be the entry's. Returns (the key,
+    the proof, the params)."""
+    cfg, params = ZKVMConfig(**want["cfg"]), bf.BasefoldParams(**want["params"])
+    vm = programs.fibonacci_vm(int(re.search(r"\d+", want["program"]).group()))
+    vk = scheme.keygen(vm.program, cfg, params, device=DEVICE).vk
+    inner, _ = stored_agg_proof("single", want)
+    pv = np.asarray(inner.public_values, np.uint64)[len(vk.digest_elems()):]
+    key = aggregate.expected_agg_key(vk, inner.geometry, [pv], params)
+    agg_golden_compare("single", want, agg_digests(key, inner, params))
+    return key, inner, params
+
+
+def agg_level2_entry(want: dict, inner_want: dict) -> dict:
+    """AGG_GOLDEN's level-2 entry proved by the port on DEVICE:
+    ``prove_chipset_aggregation`` over :func:`level2_inner`, whose digests
+    must equal the entry's (the reference's, whose bytes
+    :func:`agg_level2_verify` verifies beside it)."""
+    t0 = time.time()
+    inner_key, inner, params = level2_inner(inner_want)
+    key, aproof = aggregate.prove_chipset_aggregation(inner_key, [inner], params=params,
+                                                      device=DEVICE)
+    sync()
+    got = agg_digests(key, aproof, params)
+    got["prove_s"] = time.time() - t0
+    agg_golden_compare("level2", want, got)
+    log(f"aggregation (level2): {want['entry']} of {want['program']} equals the reference's "
+        f"({got['proof_bytes']} bytes, {got['chips']} chips) in {got['prove_s']:.2f}s")
+    return got
+
+
+def agg_level2_verify(want: dict, inner_want: dict) -> dict:
+    """The key-less ``verify_chipset_aggregation`` of the stored level-2
+    proof (the reference's bytes, which :func:`agg_level2_entry`'s digests
+    must equal) against :func:`level2_inner`'s key, which must accept it."""
+    inner_key, inner, params = level2_inner(inner_want)
+    outer, _ = stored_agg_proof("level2", want)
+    t0 = time.time()
+    if aggregate.verify_chipset_aggregation(outer, inner_key, [inner.public_values],
+                                            params=params) is not True:
+        fail("aggregation (level2): the key-less verifier did not accept the honest proof")
+    got = {"verify_s": time.time() - t0}
+    log(f"aggregation (level2): the reference's proof verified key-less in "
+        f"{got['verify_s']:.2f}s")
+    return got
+
+
+def agg_golden_check(pool) -> dict:
+    """:func:`agg_golden_entry` for each entry of AGG_GOLDEN, the level-2
+    one as :func:`agg_level2_entry` and :func:`agg_level2_verify`, each in
+    a worker of ``pool`` (:func:`agg_pool`), longest first; returns {name:
+    the worker's pending result}, which :func:`agg_results` waits for."""
     with open(AGG_GOLDEN) as f:
         want = json.load(f)
-    names = names or sorted(want, key=lambda n: -AGG_GOLDEN_ORDER.index(n))
-    return {name: pool.apply_async(_agg_job, (agg_golden_entry, name, want[name]))
-            for name in names}
-
-
-# the golden entries, longest last: a pool starts them longest first
-AGG_GOLDEN_ORDER = ["single", "default", "sharded", "level2"]
+    inner = want[want["level2"]["inner"]]
+    pending = {"level2": pool.apply_async(_agg_job, (agg_level2_entry, want["level2"], inner))}
+    for name in ("sharded", "default", "single"):
+        pending[name] = pool.apply_async(_agg_job, (agg_golden_entry, name, want[name]))
+    pending["level2 verify"] = pool.apply_async(_agg_job,
+                                                (agg_level2_verify, want["level2"], inner))
+    return pending
 
 
 def agg_pool(n: int):
@@ -2433,13 +2562,16 @@ def _agg_job(fn, *args):
 
 
 def golden_gates(pool) -> dict:
-    """Phases 7, 6 and 11's golden gates (:func:`precompile_golden_check`,
-    :func:`shard_golden_check`, :func:`gl_golden_check`), each in a worker of
+    """Phases 7, 6, 11, 13 and 5's golden gates (:func:`precompile_golden_check`,
+    :func:`shard_golden_check`, :func:`gl_golden_check`,
+    :func:`whir_golden_check`, :func:`e2e_golden_check`), each in a worker of
     ``pool``: pending (result, seconds) for :func:`agg_results`."""
     return {what: pool.apply_async(_agg_job, (_timed, fn))
             for what, fn in (("precompiles golden", precompile_golden_check),
                              ("shards golden", shard_golden_check),
-                             ("gl golden", gl_golden_check))}
+                             ("gl golden", gl_golden_check),
+                             ("whir golden", whir_golden_check),
+                             ("e2e golden", e2e_golden_check))}
 
 
 def _timed(fn) -> tuple:
@@ -3028,17 +3160,27 @@ def gl_scheme_setup(n: int, cfg: dict, device, params=None) -> tuple:
     return pk, vm, trace, e2e.public_values_from_vm(vm, cfg)
 
 
+def span_totals(tree: dict, names) -> dict:
+    """{name: (seconds, calls)} of the spans named ``names``, each summed over
+    the span tree ``tree`` ({name: node}) at every depth."""
+    out = dict.fromkeys(names, (0.0, 0))
+
+    def walk(children):
+        for name, node in children.items():
+            if name in out:
+                out[name] = (out[name][0] + node["total"], out[name][1] + node["count"])
+            walk(node["children"])
+
+    walk(tree)
+    return out
+
+
 def gl_span_seconds(tree: dict) -> tuple:
     """(seconds by span summed over the chips, {chip: {span: seconds}}, the
     grind seconds summed) of prove_gl's span tree."""
     by_span = {name: tree[name]["total"] for name in ("gl/witgen", "gl/commit") if name in tree}
     by_chip = {}
     grind = 0.0
-
-    def grinds(node) -> float:
-        return sum(c["total"] if name == "grind" else grinds(c)
-                   for name, c in node["children"].items())
-
     for name, node in tree.items():
         if not name.startswith("gl/chip/"):
             continue
@@ -3046,7 +3188,7 @@ def gl_span_seconds(tree: dict) -> tuple:
         for child, c in node["children"].items():
             chip[child] = c["total"]
             by_span[child] = by_span.get(child, 0.0) + c["total"]
-        chip["grind"] = grinds(node)
+        chip["grind"] = span_totals(node["children"], ("grind",))["grind"][0]
         grind += chip["grind"]
         by_chip[name[len("gl/chip/"):]] = chip
     return by_span, by_chip, grind
@@ -3242,6 +3384,238 @@ def gl_scheme_collect(line: dict, checks: dict) -> None:
             checks.pop(f"gl scheme golden {part}")
 
 
+# -- phase 13: WHIR, the jagged PCS's third inner opening ---------------------------
+
+WHIR_PARAMS = {"pcs_kind": "whir"}  # BasefoldParams()'s blowup 8, 29 queries and 16 PoW bits
+WHIR_LOG_N = 19  # log2 rows of the 2^20 fibonacci's witness stack: WHIR's first round
+WHIR_GOLDEN = os.path.join(ROOT, "ceno_tpu_torch", "golden", "whir_fibonacci.json")
+# tests/test_whir.py's seeded open_whir case: the first draw of its RNG
+WHIR_OPEN_CASE = {"seed": 11, "n_vars": 12, "cols": 5, "blowup_log": 2, "label": "whir-test",
+                  "params": {"k": 3, "stop_vars": 5, "security_bits": 8, "pow_bits": 0}}
+# the golden proofs: tests/test_whir.py::test_whir_zkvm_e2e's setup, and one
+# at BasefoldParams(pcs_kind="whir")'s defaults (16-bit grinds, 29-query sets)
+WHIR_GOLDEN_PROOFS = {
+    "test_params": {"iters": 8, "cfg": {"shl_x_bits": 6, "mem_words_log": 7},
+                    "params": {"blowup_log": 1, "n_queries": 4, "stop_size": 32,
+                               "pcs_kind": "whir"}},
+    "defaults": {"iters": 100, "cfg": {"shl_x_bits": 6, "mem_words_log": 7},
+                 "params": WHIR_PARAMS},
+}
+WHIR_ERRORS = PROTOCOL_ERRORS + (whir.WhirError,)
+WHIR_SPANS = ("whir/rounds", "whir/encode", "whir/tree", "whir/grind", "whir/queries")
+
+
+def whir_setup(setup: dict) -> dict:
+    """A golden proof's setup as the golden file names it: the params in full."""
+    return {"iters": setup["iters"], "cfg": setup["cfg"],
+            "params": dataclasses.asdict(bf.BasefoldParams(**setup["params"]))}
+
+
+def whir_open_inputs() -> tuple:
+    """WHIR_OPEN_CASE's inputs, canonical: the columns (C, 2^n), the point
+    (n, 4) and each column's value there (C, 4)."""
+    c = WHIR_OPEN_CASE
+    rng = np.random.default_rng(c["seed"])
+    cols = rng.integers(0, bb.P, size=(c["cols"], 1 << c["n_vars"])).astype(np.uint64)
+    z = rng.integers(0, bb.P, size=(c["n_vars"], 4)).astype(np.uint64)
+    eq = build_eq_host(z)  # (2^n, 4)
+    p = np.uint64(bb.P)
+    values = np.stack([(eq * col[:, None] % p).sum(axis=0) % p for col in cols])
+    return cols, z, values
+
+
+def transcript_state(tr) -> dict:
+    """A transcript's ``export_state()`` as plain JSON data."""
+    state, pos, sq_pos, absorbed = tr.export_state()
+    return {"state": [int(v) for v in state], "pos": int(pos), "sq_pos": int(sq_pos),
+            "absorbed": bool(absorbed)}
+
+
+def whir_golden_check() -> dict:
+    """The port's WHIR outputs on DEVICE against the reference's
+    (WHIR_GOLDEN): WHIR_OPEN_CASE's proof digest (``interop.digest`` of its
+    plain form) and the transcript's end state, then the proof of each of
+    WHIR_GOLDEN_PROOFS (SHA-256 and length of ``proof_to_bytes``, the key's
+    digest); the port's verifiers must accept each."""
+    with open(WHIR_GOLDEN) as f:
+        want = json.load(f)
+    c = WHIR_OPEN_CASE
+    if want["open_whir"]["setup"] != c:
+        fail(f"{os.path.relpath(WHIR_GOLDEN, ROOT)} names {want['open_whir']['setup']}, "
+             f"chip_smoke opens {c}")
+    cols, z, values = whir_open_inputs()
+    committed = bf.commit(cols, bf.BasefoldParams(blowup_log=c["blowup_log"]), device=DEVICE)
+    tr = Transcript(c["label"].encode())
+    proof = whir.open_whir(committed, z, values, tr, c["blowup_log"],
+                           whir.WhirParams(**c["params"]))
+    got = {"proof_digest": interop.digest(interop.whir_proof_to_dict(proof)),
+           "transcript": transcript_state(tr)}
+    if got != {k: want["open_whir"][k] for k in got}:
+        fail(f"WHIR golden: the seeded open_whir differs from the reference's: "
+             f"{got['proof_digest'][:16]} against {want['open_whir']['proof_digest'][:16]}")
+    whir.verify_whir(committed.root, c["n_vars"], c["cols"], z, values, proof,
+                     Transcript(c["label"].encode()), c["blowup_log"],
+                     whir.WhirParams(**c["params"]))
+    out = {"open_whir": got["proof_digest"][:16], "iterations": len(proof.iters)}
+    for name, setup in WHIR_GOLDEN_PROOFS.items():
+        if want[name]["setup"] != whir_setup(setup):
+            fail(f"{os.path.relpath(WHIR_GOLDEN, ROOT)} names {want[name]['setup']} for {name}, "
+                 f"chip_smoke proves {whir_setup(setup)}")
+        cfg, params = ZKVMConfig(**setup["cfg"]), bf.BasefoldParams(**setup["params"])
+        vm = programs.fibonacci_vm(setup["iters"])
+        trace = native.run_trace_native(vm)
+        pv = e2e.public_values_from_vm(vm, cfg)
+        pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
+        proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+        got = proof_digests(serialize.proof_to_bytes(proof, pv, pk.cfg, pk.params), pk)
+        if got != {k: want[name][k] for k in got}:
+            fail(f"WHIR golden: the {name} proof of fibonacci_vm({setup['iters']}) differs from "
+                 f"the reference's: {got} against {want[name]}")
+        if scheme.verify(pk.vk, proof) is not True:
+            fail(f"WHIR golden: the {name} proof was not accepted")
+        out[name] = {"proof_bytes": got["proof_bytes"], "sha256": got["proof_sha256"][:16]}
+    log(f"WHIR golden: the seeded open_whir and the proofs of {sorted(WHIR_GOLDEN_PROOFS)} equal "
+        f"the reference's and verify")
+    return out
+
+
+@contextlib.contextmanager
+def whir_audit():
+    """Over the WHIR openings made inside the block, record: the device of g
+    and of the weights w at every round's start and of every new oracle's
+    codeword, leaves and levels (each made on the main thread); the length
+    of every round's bank; each opening's shape and each new oracle's; and
+    the kernels' launches
+    made inside the openings, summed. Yields (seen, info)."""
+    seen = {"whir g": [], "whir w": [], "whir oracles": [], "whir trees": []}
+    info = {"bank_lengths": [], "oracle_shapes": [], "openings": [],
+            "launches": dict.fromkeys(launches(), 0)}
+    originals = (whir._rounds, whir._new_oracle, whir.open_whir)
+
+    def rounds(g, w, k, transcript):
+        on_main_thread("WHIR rounds")
+        seen["whir g"].append(g.device.type)
+        seen["whir w"].append(w.device.type)
+        info["bank_lengths"].append(g.shape[1])
+        return originals[0](g, w, k, transcript)
+
+    def new_oracle(g, blowup_log):
+        on_main_thread("WHIR oracles")
+        cw, tree = originals[1](g, blowup_log)
+        seen["whir oracles"].append(cw.device.type)
+        info["oracle_shapes"].append(list(cw.shape))
+        seen["whir trees"] += [x.device.type for x in (tree.leaves, *tree.levels)]
+        return cw, tree
+
+    def open_whir(committed, *args, **kwargs):
+        before = launches()
+        proof = originals[2](committed, *args, **kwargs)
+        info["launches"] = {k: v + launches()[k] - before[k] for k, v in info["launches"].items()}
+        info["openings"].append({
+            "n_vars": committed.n_vars, "cols": committed.cols.shape[0],
+            "iterations": len(proof.iters),
+            "queries": [len(it.queries.indices) for it in proof.iters]
+            + [len(proof.final_queries.indices)],
+            "final_vars": proof.final_g.shape[0].bit_length() - 1})
+        return proof
+
+    whir._rounds, whir._new_oracle, whir.open_whir = rounds, new_oracle, open_whir
+    try:
+        yield seen, info
+    finally:
+        whir._rounds, whir._new_oracle, whir.open_whir = originals
+
+
+def whir_tampered(proof) -> list:
+    """(what, proof) pairs, each one word changed in the first WHIR opening
+    with an iteration (the witness's, then the fixed one's): a leaf of its
+    first query set, its first OOD value, and its final function."""
+    openings = [op.opening for op in (*proof.witness_openings.values(),
+                                      *proof.fixed_openings.values())]
+    idx = next((i for i, op in enumerate(openings) if op.iters), None)
+    if idx is None:
+        fail("WHIR: no opening of the proof has an iteration to tamper with")
+    out = []
+    for what, arr_of, index in (("query leaf", lambda op: op.iters[0].queries.leaves, (0, 0, 0)),
+                                ("OOD value", lambda op: op.iters[0].y_ood, 0),
+                                ("final function", lambda op: op.final_g, (0, 0))):
+        bad = copy.deepcopy(proof)
+        bad_openings = [op.opening for op in (*bad.witness_openings.values(),
+                                              *bad.fixed_openings.values())]
+        bump(arr_of(bad_openings[idx]), index)
+        out.append((what, bad))
+    return out
+
+
+def run_whir(vm, trace, pv, n: int, cfg, params) -> tuple:
+    """Phase 13, with nothing beside it: keygen at ``params`` (WHIR, timed;
+    launches reset just before and read just after), one prove of the trace
+    with spans, the device audit (commits, records, tower layers, banks and
+    WHIR's g, w, oracles and trees on the card, each made on the main
+    thread) and the launches (reset just before, read just after; those
+    inside the WHIR openings counted apart), then the host verify, timed.
+    Returns (the ``whir`` line, the span report, the length of every WHIR
+    round's bank, (the key, the proof's bytes)); the caller checks the
+    launches."""
+    seconds = {}
+    reset_launches()
+    t0 = time.time()
+    pk = scheme.keygen(vm.program, cfg, params, device=DEVICE)
+    sync()
+    seconds["keygen"] = time.time() - t0
+    counted = {"keygen": launches()}
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spans.enable()
+    with prove_audit() as seen, whir_audit() as (wseen, info):
+        reset_launches()
+        t0 = time.time()
+        proof = scheme.prove(pk, vm, trace, pv, device=DEVICE)
+        sync()
+        seconds["prove"] = time.time() - t0
+        counted["prove"] = launches()
+    tree, report = spans.tree(), spans.report(min_seconds=0.01)
+    spans.disable()
+    checked = on_device({**seen, **wseen})
+    peak = torch.cuda.max_memory_allocated() if torch.device(DEVICE).type == "cuda" else None
+    counted["whir_openings"] = info["launches"]
+    data = serialize.proof_to_bytes(proof, pv, pk.cfg, pk.params)
+    t0 = time.time()
+    if scheme.verify(pk.vk, proof) is not True:
+        fail("WHIR: the verifier did not accept the honest proof")
+    seconds["verify"] = time.time() - t0
+    whir_spans = {name: {"seconds": s, "calls": c}
+                  for name, (s, c) in span_totals(tree, WHIR_SPANS).items()}
+    log(f"WHIR: keygen {seconds['keygen']:.2f}s; prove of fibonacci_vm({n}) ({trace.n} steps) "
+        f"{seconds['prove']:.2f}s (grinds {whir_spans['whir/grind']['seconds']:.2f}s); verify "
+        f"{seconds['verify']:.2f}s; proof {len(data)} bytes; launches in the WHIR openings "
+        f"{info['launches']}; on {DEVICE}: {checked}")
+    line = {"program": f"fibonacci_vm({n})", "steps": trace.n, "device": DEVICE,
+            "cfg": dataclasses.asdict(pk.cfg), "params": dataclasses.asdict(pk.params),
+            "seconds": seconds, "stage_seconds": stage_seconds(tree), "whir_spans": whir_spans,
+            "openings": info["openings"], "oracle_shapes": info["oracle_shapes"],
+            "proof_bytes": len(data),
+            "max_memory_allocated": peak, "launches": counted, "checked_on_device": checked}
+    return line, report, info["bank_lengths"], (pk, data)
+
+
+def whir_rejects_job(vk, data: bytes) -> dict:
+    """In a worker: phase 13's proof (``proof_to_bytes``) read back and
+    :func:`whir_tampered`'s three changed copies verified against ``vk``,
+    each of which must be rejected; returns {what: error name}."""
+    proof = serialize.proof_from_bytes(data)[0]
+    rejected = {}
+    for what, bad in whir_tampered(proof):
+        try:
+            scheme.verify(vk, bad)
+        except WHIR_ERRORS as e:
+            log(f"WHIR: a changed {what} rejected ({type(e).__name__}: {str(e)[:80]})")
+            rejected[what] = type(e).__name__
+        else:
+            fail(f"WHIR: a proof with a changed {what} was accepted")
+    return rejected
+
+
 def main() -> int:
     pools = []
     try:
@@ -3314,9 +3688,6 @@ def _main(pools: list) -> int:
         e2e_line, e2e_report, e2e_counted, (pk, vm, trace, proof) = run_e2e(
             E2E_ITERS, ZKVMConfig(**E2E_CFG), bf.BasefoldParams(), key_check=fixed_commit_check)
         check_duplex_steps({(a, b): c for a, b, c in e2e_line["duplex_steps"]})
-        t = time.time()
-        e2e_line["golden"] = e2e_golden_check()
-        e2e_line["seconds"]["golden_check"] = time.time() - t
     torch.cuda.empty_cache()
 
     with phase("6 continuations"):
@@ -3359,7 +3730,6 @@ def _main(pools: list) -> int:
         print(e2e_report, flush=True)
         log(f"e2e: proof of {e2e_line['program']}: {e2e_line['proof_kib']:.1f} KiB; the "
             f"reference's, BENCH_r05.json: {REFERENCE_PROOF_KIB} KiB (an older run)")
-        print(json.dumps({"e2e": e2e_line}), flush=True)
         print(shard_report, flush=True)
         log(f"shards: launches over the sharded prove: {shard_counted}")
         for name, c in shard_counted.items():
@@ -3401,7 +3771,6 @@ def _main(pools: list) -> int:
         gs_line, gs_report, gs_counted, gs_verify_args = run_gl_scheme(
             pk, vm, trace, e2e.public_values_from_vm(vm, ZKVMConfig(**E2E_CFG)))
         gs_line["program"] = f"fibonacci_vm({E2E_ITERS})"
-        del vm, trace
         for k in kernels:
             if k["name"] in gs_counted:
                 k["launches_prove_chip_gl"] = k["launches"]
@@ -3410,7 +3779,24 @@ def _main(pools: list) -> int:
                     fail(f"GL scheme: kernel {k['name']} was not launched in prove_gl")
     torch.cuda.empty_cache()
 
-    with phase("9-12 untimed: golden gates, CLI, row-sharded chip, GL verify"), \
+    with phase("13 WHIR"):
+        cfg = ZKVMConfig(**E2E_CFG)
+        whir_line, whir_report, whir_lengths, (whir_pk, whir_data) = run_whir(
+            vm, trace, e2e.public_values_from_vm(vm, cfg), E2E_ITERS, cfg,
+            bf.BasefoldParams(**WHIR_PARAMS))
+        if 1 << WHIR_LOG_N not in whir_lengths:
+            fail(f"WHIR: phase 2's first-round bank of 2^{WHIR_LOG_N} is not among the WHIR "
+                 f"rounds' banks {sorted(set(whir_lengths))}")
+        for name in ("leaf_sponge", "compress_level", "round_evals", "fold"):
+            for path in ("prove", "whir_openings"):
+                if whir_line["launches"][path][name] <= 0:
+                    fail(f"WHIR: kernel {name} was not launched in the {path}")
+        log(f"WHIR: launches over the prove {whir_line['launches']['prove']}, inside its WHIR "
+            f"openings {whir_line['launches']['whir_openings']}")
+        del vm, trace
+    torch.cuda.empty_cache()
+
+    with phase("9-13 untimed: golden gates, CLI, row-sharded chip, GL verify"), \
             tempfile.TemporaryDirectory() as tmp:
         # nothing is timed from here on: the golden entries and gates and the
         # checks of the parsed and the tampered proof run in workers beside
@@ -3423,11 +3809,17 @@ def _main(pools: list) -> int:
         pending.update(gl_scheme_jobs(pool, *gs_verify_args))
         pending.update(golden_gates(pool))
         pending.update(agg_verifications(pool, pk.vk, agg_data))
+        pending["whir rejects"] = pool.apply_async(_agg_job,
+                                                   (whir_rejects_job, whir_pk.vk, whir_data))
         cli_line, sharded_line = run_phase10_untimed(tmp)
         checks = agg_results(pending)
+        e2e_line["golden"], e2e_line["seconds"]["golden_check"] = checks.pop("e2e golden")
         shard_line["golden"], shard_line["seconds"]["golden_check"] = \
             checks.pop("shards golden")
         gl_line["golden"], gl_line["seconds"]["golden_check"] = checks.pop("gl golden")
+        whir_line["golden"], whir_line["seconds"]["golden_check"] = checks.pop("whir golden")
+        whir_line["rejected"] = checks.pop("whir rejects")
+        del whir_pk, whir_data
         gl_scheme_collect(gs_line, checks)
         del gs_verify_args
         golden, golden_s = checks.pop("precompiles golden")
@@ -3440,6 +3832,7 @@ def _main(pools: list) -> int:
         agg_line["golden"] = checks
         agg_line["golden"]["seconds"] = time.time() - t
         del pk, agg_data
+        print(json.dumps({"e2e": e2e_line}), flush=True)
         print(json.dumps({"shards": shard_line}), flush=True)
         print(json.dumps({"precompiles": pre_line}), flush=True)
         print(agg_report, flush=True)
@@ -3455,6 +3848,8 @@ def _main(pools: list) -> int:
         print(json.dumps({"gl": gl_line}), flush=True)
         print(gs_report, flush=True)
         print(json.dumps({"gl_scheme": gs_line}), flush=True)
+        print(whir_report, flush=True)
+        print(json.dumps({"whir": whir_line}), flush=True)
         print(json.dumps({"kernel_shapes": shape_rows}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)

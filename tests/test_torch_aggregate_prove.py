@@ -90,6 +90,27 @@ def test_port_proof_has_golden_digests(proved, want):
     assert aproof.geometry == [agg.ShardGeometry(list(aproof.geometry[0].num_instances))]
 
 
+def test_stored_proofs_are_the_golden_ones(proved, want):
+    """The single entry's stored bytes are the port's proof (and so the
+    reference's); the level-2 entry's have the digests of its entry, and
+    chip_smoke's level-2 jobs rebuild the inner key from the stored bytes."""
+    with open(chip_smoke.AGG_GOLDEN_PROOF.format("single"), "rb") as f:
+        assert f.read() == proved[3]
+    with open(GOLDEN) as f:
+        level2 = json.load(f)["level2"]
+    assert level2["inner"] == "single"
+    outer, params = chip_smoke.stored_agg_proof("level2", level2)
+    assert outer.geometry[0] == "chipset" and params == proved[0].params
+    mp = pytest.MonkeyPatch()
+    mp.setattr(chip_smoke, "DEVICE", "cpu")
+    try:
+        key, inner, params = chip_smoke.level2_inner(want)
+    finally:
+        mp.undo()
+    assert chip_smoke.agg_digests(key, inner, params) == chip_smoke.agg_digests(*proved[1:3],
+                                                                                 params)
+
+
 def test_reference_verifies_port_proof(proved):
     pk, _, _, blob = proved
     # the reference's key of the same program (keygen is deterministic)
@@ -133,4 +154,7 @@ def test_golden_entry_recomputed_by_reference(want):
         "torch_agg_golden", os.path.join(ROOT, "tools", "torch_agg_golden.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    assert tool._reference_entry("single") == want
+    got, blob = tool._reference_entry("single")
+    assert got == want
+    with open(chip_smoke.AGG_GOLDEN_PROOF.format("single"), "rb") as f:
+        assert f.read() == blob

@@ -177,13 +177,24 @@ def test_launch_plan_matches_the_proof(runs):
 
 
 def test_decoder_whitelist():
-    # a class the reference's whitelist has and the port's leaves out (WHIR)
-    fake = dataclasses.make_dataclass("WhirProof", [("iters", list)])
+    # a class that neither package's whitelist has
+    fake = dataclasses.make_dataclass("ForeignProof", [("iters", list)])
     buf = io.BytesIO()
     buf.write(serialize.MAGIC)
     serialize._encode(buf, {"proof": fake([])})
-    with pytest.raises(serialize.ProofFormatError, match="WhirProof"):
+    with pytest.raises(serialize.ProofFormatError, match="ForeignProof"):
         serialize.proof_from_bytes(buf.getvalue())
+    # the WHIR classes pass it
+    from ceno_tpu_torch.pcs.whir import WhirIter, WhirProof, WhirQuerySet
+
+    qs = WhirQuerySet([3, 1], np.zeros((2, 8, 4), np.uint64), np.zeros((16, 5, 8), np.uint64), 7)
+    wp = WhirProof([WhirIter(np.zeros((3, 3, 4), np.uint64), np.zeros(8, np.uint64),
+                             np.zeros(4, np.uint64), qs)],
+                   np.zeros((2, 3, 4), np.uint64), np.zeros((32, 4), np.uint64), qs)
+    data = serialize.proof_to_bytes(wp, np.zeros(1, np.uint64), None, None)
+    back, _, _, _ = serialize.proof_from_bytes(data)
+    assert type(back) is WhirProof and type(back.iters[0].queries) is WhirQuerySet
+    assert back.final_queries.indices == [3, 1] and back.final_queries.pow_nonce == 7
     # the continuations' classes pass it
     from ceno_tpu_torch.gkr.eccquark import EccQuarkProof
     from ceno_tpu_torch.zkvm.shard import ShardedProof

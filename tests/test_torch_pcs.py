@@ -20,6 +20,7 @@ from ceno_tpu.pcs import basefold as rbf
 from ceno_tpu.pcs import jagged as rjg
 from ceno_tpu.pcs import merkle as rmerkle
 from ceno_tpu.pcs import ntt as rntt
+from ceno_tpu.pcs import whir as rwhir
 from ceno_tpu.sumcheck import host_impl as RH
 from ceno_tpu.sumcheck.verifier import SumcheckError as RSumcheckError
 from ceno_tpu_torch import interop
@@ -29,6 +30,7 @@ from ceno_tpu_torch.pcs import basefold as bf
 from ceno_tpu_torch.pcs import jagged as jg
 from ceno_tpu_torch.pcs import merkle
 from ceno_tpu_torch.pcs import ntt
+from ceno_tpu_torch.pcs import whir
 from ceno_tpu_torch.sumcheck.verifier import SumcheckError
 
 torch.set_num_threads(1)
@@ -244,6 +246,32 @@ def test_tampered_claims_and_proofs_are_rejected(jagged_case):
     with pytest.raises(jg.JaggedError):
         jg.verify_jagged(c["committed"].root, c["layout"], c["pclaims"],
                          interop.opening_from_dict(d), Transcript(LABEL), c["pparams"])
-    with pytest.raises(NotImplementedError):
-        jg.open_jagged(c["committed"], c["layout"], c["pclaims"], Transcript(LABEL),
-                       bf.BasefoldParams(pcs_kind="whir"))
+
+
+def test_open_jagged_whir_matches_reference(jagged_case):
+    """The WHIR inner opening (pcs_kind="whir") on the same commitments:
+    the port's JaggedOpening equals the reference's field by field, each
+    package's verifier accepts the other's, and a changed final function is
+    rejected by both."""
+    c = jagged_case
+    params = rbf.BasefoldParams(**SMALL, pcs_kind="whir")
+    pparams = interop.params_from_dict(dataclasses.asdict(params))
+    ref = rjg.open_jagged(c["ref_committed"], c["rlayout"], c["claims"], RTranscript(LABEL),
+                          params)
+    port = jg.open_jagged(c["committed"], c["layout"], c["pclaims"], Transcript(LABEL), pparams)
+    assert type(port.opening).__name__ == "WhirProof"
+    _assert_same(dataclasses.asdict(port), dataclasses.asdict(ref))
+    jg.verify_jagged(c["committed"].root, c["layout"], c["pclaims"],
+                     interop.opening_from_dict(dataclasses.asdict(ref)), Transcript(LABEL),
+                     pparams)
+    rjg.verify_jagged(c["ref_committed"].root, c["rlayout"], c["claims"], port,
+                      RTranscript(LABEL), params)
+    d = dataclasses.asdict(port)
+    d["opening"]["final_g"][0, 0] = (d["opening"]["final_g"][0, 0] + 1) % P
+    bad = interop.opening_from_dict(d)
+    with pytest.raises(whir.WhirError):
+        jg.verify_jagged(c["committed"].root, c["layout"], c["pclaims"], bad,
+                         Transcript(LABEL), pparams)
+    with pytest.raises(rwhir.WhirError):
+        rjg.verify_jagged(c["ref_committed"].root, c["rlayout"], c["claims"], bad,
+                          RTranscript(LABEL), params)

@@ -513,10 +513,17 @@ def test_chip_smoke_k6a_rows_on_the_cpu(monkeypatch):
         monkeypatch.setattr(cs, name, [dict(cm, log_n=min(cm["log_n"], 3))
                                        for cm in getattr(cs, name)])
     monkeypatch.setattr(cs, "SHARD_CLASS_MAIN", dict(cs.SHARD_CLASS_MAIN, log_n=3))
+    monkeypatch.setattr(cs, "WHIR_LOG_N", 3)
     kernels, rows = cs.sumcheck_kernels_vs_plain(np.random.default_rng(1), {})
     assert [k["name"] for k in kernels] == ["round_evals", "fold", "duplex"]
     k6a = [r for r in rows if r["name"] == "round_evals"]
-    assert len(k6a) == 11 and all(r["max_abs_err"] == 0 for r in k6a)
+    assert len(k6a) == 12 and all(r["max_abs_err"] == 0 for r in k6a)
+    # WHIR's first round: no base bank, one term, degree 2, then K6b in ext mode
+    assert k6a[-1]["shape"].startswith("WHIR's first round") and "DB 0, DE 2, deg 2" in k6a[-1]["shape"]
+    assert rows[rows.index(k6a[-1]) + 1]["shape"].endswith("ext mode: 0 base and 3 ext columns of 2^3")
+    # its bound reads g and w (4, 2, 2^3) and writes the (3, 4) sums, not the sentinel
+    assert k6a[-1]["bound_ms"] == cs.bound_of(
+        3 * (4 + 1) * cs.EXT_PRODUCTS * cs.MULS_PER_PRODUCT, 4 * (8 * 8 + 4 * 3))[0]
     assert k6a[0]["plan"]["t_lanes"] * k6a[0]["plan"]["chunks"] == 10  # the tower's live terms
     for r in k6a:
         (key,) = r["ptxas"]

@@ -22,6 +22,11 @@ kept). The entries, each proved in a process of its own, all at once:
 
 The card has no JAX, so ``chip_smoke.py`` holds the port's proofs of the same
 setups against these bytes there; the CPU tests hold the ``single`` entry.
+The bytes of the ``single`` and ``level2`` proofs themselves are written
+beside the digests (``aggregation_single.bin``, ``aggregation_level2.bin``):
+``chip_smoke.py`` proves the ``level2`` entry over the stored inner proof and
+verifies the stored outer one in a second process, so neither waits for the
+other. ``single`` and ``level2`` together take about 18 minutes.
 """
 
 from __future__ import annotations
@@ -41,6 +46,13 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("CENO_TPU_HOST_N", str(1 << 17))
 
 OUT = os.path.join(ROOT, "ceno_tpu_torch", "golden", "aggregation_fibonacci.json")
+BLOBS = ("single", "level2")  # the entries whose proof bytes are kept too
+
+
+def blob_path(name: str) -> str:
+    return os.path.join(ROOT, "ceno_tpu_torch", "golden", f"aggregation_{name}.bin")
+
+
 CFG = {"shl_x_bits": 6, "mem_words_log": 7}
 FAST_PARAMS = {"blowup_log": 1, "n_queries": 4, "stop_size": 32}
 SETUPS = {
@@ -68,7 +80,8 @@ def key_digest(key) -> str:
     return hashlib.sha256(np.asarray(key.digest_elems(), np.uint64).tobytes()).hexdigest()
 
 
-def _reference_entry(name: str) -> dict:
+def _reference_entry(name: str) -> tuple:
+    """(the entry's digests, its proof's bytes)."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -98,10 +111,11 @@ def _reference_entry(name: str) -> dict:
             key, aproof = agg.prove_chipset_aggregation(key, [aproof], params=params)
     out = {k: v for k, v in s.items() if k != "iters"}
     out.update(extra)
-    out.update(blob_digest(agg_proof_to_bytes(aproof, params)))
+    blob = agg_proof_to_bytes(aproof, params)
+    out.update(blob_digest(blob))
     out["chips"] = len(key.chips)
     out["key_sha256"] = key_digest(key)
-    return out
+    return out, blob
 
 
 def main() -> int:
@@ -109,11 +123,19 @@ def main() -> int:
     only = [a for a in args if a in SETUPS]
     names = only or list(SETUPS)
     with mp.get_context("spawn").Pool(len(names)) as pool:
-        got = dict(zip(names, pool.map(_reference_entry, names)))
+        got, blobs = {}, {}
+        for name, (out, blob) in zip(names, pool.map(_reference_entry, names)):
+            got[name] = out
+            if name in BLOBS:
+                blobs[name] = blob
     if "--check" in args:
         with open(OUT) as f:
             want = json.load(f)
         bad = {n: (got[n], want.get(n)) for n in names if want.get(n) != got[n]}
+        for name, blob in blobs.items():
+            with open(blob_path(name), "rb") as f:
+                if f.read() != blob:
+                    bad[name] = f"{os.path.basename(blob_path(name))} differs"
         print("equal" if not bad else f"differ: {bad}")
         return 0 if not bad else 1
     have = {}
@@ -125,7 +147,11 @@ def main() -> int:
     with open(OUT, "w") as f:
         json.dump({n: have[n] for n in SETUPS if n in have}, f, indent=1)
         f.write("\n")
-    print(f"wrote {os.path.relpath(OUT, ROOT)}")
+    for name, blob in blobs.items():
+        with open(blob_path(name), "wb") as f:
+            f.write(blob)
+    print(f"wrote {os.path.relpath(OUT, ROOT)}" + "".join(
+        f", {os.path.relpath(blob_path(n), ROOT)}" for n in blobs))
     return 0
 
 
